@@ -1,0 +1,112 @@
+"""Randomized-decision-forest artifacts and the per-level tables of the plain
+evaluator (counterpart of beats3d_tpu/models/forest.py).
+
+Artifact contract, byte-compatible with the reference's saved models:
+
+    forest = float32 array of shape (num_trees, 2**max_depth - 1, 7 + 2*num_classes)
+
+Each node packs (ux, uy, vx, vy, thresh, l_next, r_next, l_pdf[C], r_pdf[C]).
+A child flag whose floor is -1 means "descend to the child at the next level";
+any other value ends the walk on that side with its pdf.  Node indices are
+within-level: the children of node ``g`` at level ``j`` are ``2g`` and
+``2g + 1`` at level ``j + 1``, and node ``g`` of level ``j`` is row
+``2**j - 1 + g``.
+
+The CUDA kernel walks this dense layout directly.  The plain evaluator
+(:mod:`..ops.forest_eval`) advances every pixel one level per step and reads
+per-level tables (:class:`PackedForest`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import io
+import os
+from typing import List
+
+import numpy as np
+import torch
+
+
+def forest_dims(shape):
+    """(num_trees, max_depth, num_classes) of a packed forest's shape."""
+    num_trees, total, els = shape
+    max_depth = int(np.log2(total + 1))
+    if total != 2 ** max_depth - 1 or (els - 7) % 2 or els < 9:
+        raise ValueError(f"not a packed forest shape: {tuple(shape)}")
+    return num_trees, max_depth, (els - 7) // 2
+
+
+@dataclasses.dataclass
+class DecisionForest:
+    """A forest in packed layout (host numpy), shape (T, total_nodes, 7+2C)."""
+
+    num_trees: int
+    max_depth: int
+    num_classes: int
+    data: np.ndarray
+
+    @staticmethod
+    def load(path: str) -> "DecisionForest":
+        """Load a .npy forest, inferring its dims from the array shape.  A
+        forest kept gzipped beside the config (``path + ".gz"``, as the
+        committed flagship's fine layer is) is read when ``path`` is
+        absent."""
+        if not os.path.exists(path) and os.path.exists(path + ".gz"):
+            with gzip.open(path + ".gz", "rb") as f:
+                arr = np.load(io.BytesIO(f.read()))
+        else:
+            arr = np.load(path)
+        arr = arr.astype(np.float32)
+        return DecisionForest(*forest_dims(arr.shape), arr)
+
+
+@dataclasses.dataclass
+class ForestLevel:
+    """Per-level tables (T = num_trees, G = 2**level, C = num_classes):
+
+      uv:      (T, G, 4) float32 — (ux, uy, vx, vy) probe offsets
+      thresh:  (T, G)    float32
+      lr_next: (T, G, 2) int32   — floor of the stored flags; -1 = descend
+      pdf:     (T, G, 2, C) float32 — (left, right) leaf pdfs
+    """
+
+    uv: torch.Tensor
+    thresh: torch.Tensor
+    lr_next: torch.Tensor
+    pdf: torch.Tensor
+
+
+@dataclasses.dataclass
+class PackedForest:
+    """Per-level tables of one forest, on one device."""
+
+    num_trees: int
+    max_depth: int
+    num_classes: int
+    levels: List[ForestLevel]
+
+    @staticmethod
+    def from_flat(flat: torch.Tensor) -> "PackedForest":
+        """Split a dense (T, 2**D - 1, 7 + 2C) float32 tensor into levels."""
+        t, d, c = forest_dims(flat.shape)
+        levels = []
+        for j in range(d):
+            nodes = flat[:, 2 ** j - 1 : 2 ** (j + 1) - 1, :]
+            levels.append(ForestLevel(
+                uv=nodes[:, :, 0:4].contiguous(),
+                thresh=nodes[:, :, 4].contiguous(),
+                lr_next=torch.floor(nodes[:, :, 5:7]).to(torch.int32),
+                pdf=torch.stack(
+                    [nodes[:, :, 7 : 7 + c], nodes[:, :, 7 + c : 7 + 2 * c]],
+                    dim=2,
+                ).contiguous(),
+            ))
+        return PackedForest(t, d, c, levels)
+
+    def tables(self):
+        """Per-level (uv, thresh, lr_next, pdf) tuples."""
+        return tuple(
+            (lv.uv, lv.thresh, lv.lr_next, lv.pdf) for lv in self.levels
+        )

@@ -1,0 +1,10 @@
+from . import (  # noqa: F401
+    components,
+    cuda_lib,
+    forest_eval,
+    forest_eval_cuda,
+    meanshift,
+    plane,
+    points,
+    preproc_cuda,
+)

@@ -1,0 +1,143 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+``csrc/*.cu`` are compiled by ``nvcc`` into one shared library with a plain C
+interface, at first use, into ``build/beats3d_tpu_torch/`` beside the
+package, and bound with ``ctypes``.  The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and a stale build is
+never loaded.  Nothing here runs at import time: the CPU tests import every
+module on hosts without ``nvcc``.
+
+Flags: ``sm_90a`` (Hopper); ``--fmad=false`` and ``-prec-div=true`` because
+probe offsets and the plane-band test sit on integer and threshold
+boundaries, where a contracted multiply-add or an approximate division moves
+results (the kernels also spell the arithmetic with ``__fmul_rn`` /
+``__fdiv_rn``).  Never ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "beats3d_tpu_torch")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",
+    "-prec-sqrt=true", "-Xptxas", "-v",
+)
+
+
+class LayerDesc(ctypes.Structure):
+    """Mirror of ``B3dLayerDesc`` in csrc/forest_eval.cu."""
+
+    _fields_ = [
+        ("forest", ctypes.c_void_p),
+        ("trees", ctypes.c_int),
+        ("levels", ctypes.c_int),
+        ("classes", ctypes.c_int),
+        ("filter_model", ctypes.c_int),
+        ("filter_class", ctypes.c_int),
+    ]
+
+
+@dataclasses.dataclass
+class Build:
+    path: str
+    seconds: float      # nvcc wall time; 0.0 when an existing build was reused
+    log: str            # nvcc / ptxas output (registers, shared memory, spills)
+
+
+def _sources():
+    return sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+        + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        cands.append(os.path.join(cuda_home, "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class _Library:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.build: Optional[Build] = None
+        self.lib = None
+
+    def get(self):
+        with self._lock:
+            if self.lib is None:
+                self.build = _compile()
+                self.lib = _bind(ctypes.CDLL(self.build.path))
+            return self.lib
+
+
+def _compile() -> Build:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    path = os.path.join(BUILD_DIR, f"libbeats3d_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return Build(path, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, path)
+    return Build(path, seconds, log)
+
+
+def _bind(lib):
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.b3d_evaluate_layered.argtypes = [
+        vp, vp, i, i, i, i, f, ctypes.POINTER(LayerDesc), i, vp, i, vp,
+    ]
+    lib.b3d_evaluate_layered.restype = i
+    lib.b3d_plane_band_gauss.argtypes = [
+        vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp,
+    ]
+    lib.b3d_plane_band_gauss.restype = i
+    lib.b3d_error_string.argtypes = [i]
+    lib.b3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+LIBRARY = _Library()
+
+
+def library():
+    """The loaded kernel library, compiled on first use."""
+    return LIBRARY.get()
+
+
+def check(status: int, what: str):
+    """Raise on a non-zero cudaError_t returned by a C entry."""
+    if status != 0:
+        msg = LIBRARY.lib.b3d_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -57,3 +57,8 @@ def pytest_configure(config):
         "onchip: compiled (non-interpret) kernel test; needs the real TPU "
         "(B3D_TESTS_TPU=1)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: hand-written CUDA kernel test of beats3d_tpu_torch; needs an "
+        "NVIDIA card and skips without one",
+    )

@@ -1,0 +1,167 @@
+"""The port's forest evaluation (beats3d_tpu_torch.ops.forest_eval and the
+layered model) against the JAX package on the same seeded inputs: the XLA
+evaluator on the CPU, the fused Pallas kernel in interpret mode, and the
+flagship golden.  Labels must be exact.
+
+The CUDA kernel itself (forest_eval_cuda) is checked on the card by
+tests/test_torch_cuda.py and chip_smoke.py; on the CPU its wrapper runs the
+plain version tested here."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fixtures
+import oracle
+
+from beats3d_tpu.models import LayeredDecisionForest as JaxLayered
+from beats3d_tpu.models.forest import PackedForest as JaxPacked
+from beats3d_tpu.ops import forest_eval as jfe
+from beats3d_tpu.ops import forest_eval_pallas as fep
+from beats3d_tpu_torch.models import LayeredDecisionForest
+from beats3d_tpu_torch.models.forest import DecisionForest, PackedForest
+from beats3d_tpu_torch.ops import forest_eval, forest_eval_cuda
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP = os.path.join(os.path.dirname(HERE), "models", "flagship")
+
+
+def _tables(flat):
+    return PackedForest.from_flat(torch.as_tensor(flat)).tables()
+
+
+@pytest.mark.parametrize("r,scale", [(1, 1.0), (2, 1.0), (2, 0.5), (1, 0.25)])
+def test_evaluate_forest_matches_jax(rng, r, scale):
+    depth = fixtures.random_depth_image(rng, 2, 24, 32)
+    flat = fixtures.random_forest_flat(rng, 3, 5, 5)
+    want = np.asarray(jfe.evaluate_forest(
+        jnp.asarray(depth), JaxPacked.from_flat(flat).tables(),
+        labels_reduce=r, scale_factor=scale))
+    got = forest_eval.evaluate_forest(
+        torch.as_tensor(depth), _tables(flat), labels_reduce=r,
+        scale_factor=scale)
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        want, oracle.eval_forest(depth, flat, 5, 5, labels_reduce=r,
+                                 scale_factor=scale))
+
+
+def test_filter_and_single_tree_semantics(rng):
+    depth = fixtures.random_depth_image(rng, 1, 24, 32)
+    flat = fixtures.random_forest_flat(rng, 2, 4, 5)
+    filt = rng.integers(0, 3, size=(1, 12, 16)).astype(np.uint16)
+    want = np.asarray(jfe.evaluate_forest(
+        jnp.asarray(depth), JaxPacked.from_flat(flat).tables(),
+        labels_reduce=2, filter_images=jnp.asarray(filt), filter_class=1))
+    got = forest_eval.evaluate_forest(
+        torch.as_tensor(depth), _tables(flat), labels_reduce=2,
+        filter_images=torch.as_tensor(filt), filter_class=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    tree = fixtures.random_tree_flat(rng, 5, 4)
+    want = np.asarray(jfe.evaluate_tree(
+        jnp.asarray(depth), JaxPacked.from_flat(tree[None]).tables()))
+    got = forest_eval.evaluate_forest(
+        torch.as_tensor(depth), _tables(tree[None]), write_all_eligible=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_composite_labels_matches_jax(rng):
+    labels = rng.integers(0, 5, size=(3, 2, 10, 12)).astype(np.uint16)
+    labels[rng.random(labels.shape) < 0.1] = 65535
+    conditions = np.array(
+        [[1, 4], [0, 1], [0, 2], [1, 7], [0, 3], [2, 0], [0, 4], [0, 5],
+         [1, 0]], np.int32)
+    want = np.asarray(jfe.composite_labels(
+        jnp.asarray(labels), jnp.asarray(conditions)))
+    got = forest_eval.composite_labels(
+        torch.as_tensor(labels), torch.as_tensor(conditions))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _layered_pair(tmp_path, rng, r):
+    cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
+    return (JaxLayered.load(cfg_path, labels_reduce=r),
+            LayeredDecisionForest.load(cfg_path, labels_reduce=r, device="cpu"))
+
+
+@pytest.mark.parametrize("h,w,r,scale", [(24, 32, 2, 1.0), (32, 256, 2, 0.25),
+                                         (24, 32, 1, 0.5)])
+def test_layered_matches_jax_xla(tmp_path, rng, h, w, r, scale):
+    jm, tm = _layered_pair(tmp_path, rng, r)
+    depth = fixtures.random_depth_image(rng, 2, h, w)
+    want = np.asarray(jm.run(jnp.asarray(depth), scale_factor=scale))
+    got = tm.run(torch.as_tensor(depth), scale_factor=scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_layered_matches_pallas_interpret(tmp_path, rng):
+    """The fused Pallas kernel (interpret mode) that K1 replaces."""
+    jm, tm = _layered_pair(tmp_path, rng, 2)
+    depth = fixtures.random_depth_image(rng, 1, 24, 32)
+    want = np.asarray(fep.evaluate_layered_pallas(
+        jnp.asarray(depth), jm.layer_tables_pallas(), jm.layer_metas(),
+        jm.conditions_packed(), int(jm.conditions_np.shape[0]),
+        filter_specs=tuple((l.filter_model, l.filter_model_class)
+                           for l in jm.layers),
+        labels_reduce=2, scale_factor=0.5, interpret=True))
+    got = tm.run(torch.as_tensor(depth), scale_factor=0.5)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_from_numpy_equals_load(tmp_path, rng):
+    cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
+    jm = JaxLayered.load(cfg_path, labels_reduce=2)
+    a = LayeredDecisionForest.from_numpy(
+        [(l.flat, l.filter_model, l.filter_model_class) for l in jm.layers],
+        jm.conditions_np, jm.label_colors, "cpu", labels_reduce=2)
+    b = LayeredDecisionForest.load(cfg_path, labels_reduce=2, device="cpu")
+    assert a.num_layered_classes == b.num_layered_classes == jm.num_layered_classes
+    assert a.filter_specs() == b.filter_specs() == tuple(
+        (l.filter_model, l.filter_model_class) for l in jm.layers)
+    for la, lb in zip(a.layers, b.layers):
+        assert torch.equal(la.flat, lb.flat)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng, 1, 24, 32))
+    assert torch.equal(a.run(depth), b.run(depth))
+
+
+def test_forest_npy_roundtrip(tmp_path, rng):
+    flat = fixtures.random_forest_flat(rng, 3, 5, 6)
+    path = str(tmp_path / "f.npy")
+    np.save(path, flat)
+    f = DecisionForest.load(path)
+    assert (f.num_trees, f.max_depth, f.num_classes) == (3, 5, 6)
+    packed = PackedForest.from_flat(torch.as_tensor(f.data))
+    jax_levels = JaxPacked.from_flat(flat).levels
+    for lt, lj in zip(packed.levels, jax_levels):
+        for a, b in ((lt.uv, lj.uv), (lt.thresh, lj.thresh),
+                     (lt.lr_next, lj.lr_next), (lt.pdf, lj.pdf)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_wrapper_on_cpu_is_the_plain_version(tmp_path, rng):
+    cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
+    tm = LayeredDecisionForest.load(cfg_path, labels_reduce=2, device="cpu")
+    depth = torch.as_tensor(fixtures.random_depth_image(rng, 2, 24, 32))
+    before = forest_eval_cuda.evaluate_layered_cuda.launches
+    got = forest_eval_cuda.evaluate_layered_cuda(
+        depth.to(torch.int32), tm.layers, tm.conditions, labels_reduce=2)
+    want = forest_eval_cuda.evaluate_layered_plain(
+        depth, tm.layers, tm.conditions, labels_reduce=2)
+    assert forest_eval_cuda.evaluate_layered_cuda.launches == before
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_flagship_golden_labels():
+    """The committed D=16 flagship at r=2 through the plain evaluator equals
+    golden_eval.npz frame 0 (recorded at r=1) subsampled, exactly."""
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    model = LayeredDecisionForest.load(
+        os.path.join(FLAGSHIP, "model_cfg.json"), labels_reduce=2,
+        device="cpu")
+    got = model.run(torch.as_tensor(data["depth"][:1]))
+    np.testing.assert_array_equal(got[0].numpy(), data["labels"][0][::2, ::2])
