@@ -1,5 +1,9 @@
-// Layered decision-forest evaluation plus the conditions composite, in one
-// kernel: evaluate_layered_cuda.
+// Decision-forest evaluation kernels:
+//
+// * K1, evaluate_layered_kernel (evaluate_layered_cuda): every layer of a
+//   layered forest plus the conditions composite;
+// * B1, evaluate_forest_kernel (evaluate_forest_cuda): one forest, at the
+//   end of this file.
 //
 // Replaces the Pallas TPU kernel
 // beats3d_tpu/ops/forest_eval_pallas.py:evaluate_layered_pallas
@@ -38,6 +42,7 @@ namespace {
 constexpr int kMaxLayers = 4;
 constexpr int kMaxClasses = 16;
 constexpr int kMaxConditions = 128;
+constexpr int kMaxTrees = 16;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -178,6 +183,128 @@ extern "C" int b3d_evaluate_layered(const int32_t* depth, int32_t* out, int n,
   const dim3 grid((wl + kBlockX - 1) / kBlockX, (hl + kBlockY - 1) / kBlockY, n);
   evaluate_layered_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       depth, out, h, w, r, scale, p, conditions, num_cond);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B1: one forest (evaluate_forest_cuda).
+//
+// Replaces the Pallas TPU kernel
+// beats3d_tpu/ops/forest_eval_pallas.py:evaluate_forest_pallas (_run_pallas,
+// body _make_kernel) and keeps the contract of the plain evaluator
+// beats3d_tpu/ops/forest_eval.py:evaluate_forest: labels of one forest on
+// the stride-r grid, with an optional filter image (evaluate only where it
+// equals filter_class), a probe scale, and single-tree semantics
+// (write_all_eligible = 0: write only where every tree reached a leaf).
+//
+// Design: one thread per label pixel walks every tree with walk_tree_level
+// and records each tree's leaf pdf and the level it stopped at.  The pdfs
+// are then summed in the plain evaluator's order, level by level and in
+// tree order within a level, so the float32 sums, and with them an argmax
+// near a tie, are the plain evaluator's bit for bit (the trainer picks trees
+// by the labels this kernel writes).  The argmax takes the strictly greater
+// class from (0.0, class 0), the first maximum; 65535 marks pixels not
+// written.  Bound, as K1, by dependent gathers (node row, then two depth
+// probes per level); occupancy hides their latency, the node rows and depth
+// go through the read-only cache, and a D=16 forest stays in the 50 MB L2.
+// Ineligible pixels return after one or two loads.
+
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+evaluate_forest_kernel(const int32_t* __restrict__ depth,
+                       int32_t* __restrict__ out, int h, int w, int r,
+                       float scale, const float* __restrict__ forest,
+                       int trees, int levels, int classes,
+                       const int32_t* __restrict__ filter, int filter_class,
+                       int write_all_eligible) {
+  const int hl = h / r;
+  const int wl = w / r;
+  const int xl = blockIdx.x * blockDim.x + threadIdx.x;
+  const int yl = blockIdx.y * blockDim.y + threadIdx.y;
+  if (xl >= wl || yl >= hl) return;
+  const size_t oi = (static_cast<size_t>(blockIdx.z) * hl + yl) * wl + xl;
+  const int32_t* img = depth + static_cast<size_t>(blockIdx.z) * h * w;
+  const int y = yl * r;
+  const int x = xl * r;
+  const int dc = __ldg(img + static_cast<size_t>(y) * w + x);
+  bool eligible = dc != 0 && dc != b3d::kMissing;
+  if (eligible && filter != nullptr) eligible = __ldg(filter + oi) == filter_class;
+  if (!eligible) {
+    out[oi] = b3d::kMissing;
+    return;
+  }
+  const float d = static_cast<float>(dc);
+
+  const size_t tree_stride =
+      static_cast<size_t>((1 << levels) - 1) * (7 + 2 * classes);
+  const float* pdf[kMaxTrees];
+  int stop[kMaxTrees];
+  bool all_done = true;
+  for (int t = 0; t < trees; ++t) {
+    pdf[t] = b3d::walk_tree_level(forest + t * tree_stride, levels, classes,
+                                  img, h, w, y, x, d, scale, &stop[t]);
+    all_done = all_done && pdf[t] != nullptr;
+  }
+  if (!write_all_eligible && !all_done) {
+    out[oi] = b3d::kMissing;
+    return;
+  }
+
+  float acc[kMaxClasses];
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) acc[k] = 0.0f;
+  for (int j = 0; j < levels; ++j) {
+    float level_sum[kMaxClasses];
+    bool any = false;
+    for (int t = 0; t < trees; ++t) {
+      if (pdf[t] == nullptr || stop[t] != j) continue;
+#pragma unroll
+      for (int k = 0; k < kMaxClasses; ++k) {
+        if (k < classes) {
+          const float v = __ldg(pdf[t] + k);
+          level_sum[k] = any ? __fadd_rn(level_sum[k], v) : v;
+        }
+      }
+      any = true;
+    }
+    if (!any) continue;
+#pragma unroll
+    for (int k = 0; k < kMaxClasses; ++k) {
+      if (k < classes) acc[k] = __fadd_rn(acc[k], level_sum[k]);
+    }
+  }
+  float best = 0.0f;
+  int best_c = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) {
+    if (k < classes && acc[k] > best) {
+      best = acc[k];
+      best_c = k;
+    }
+  }
+  out[oi] = best_c;
+}
+
+// depth: (n, h, w) int32; out: (n, h / r, w / r) int32; forest: (trees,
+// 2^levels - 1, 7 + 2 * classes) float32; filter: (n, h / r, w / r) int32 or
+// null; all device pointers.  Returns cudaGetLastError() after the launch.
+extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
+                                   int h, int w, int r, float scale,
+                                   const float* forest, int trees, int levels,
+                                   int classes, const int32_t* filter,
+                                   int filter_class, int write_all_eligible,
+                                   void* stream) {
+  if (trees < 1 || trees > kMaxTrees || classes < 1 || classes > kMaxClasses ||
+      levels < 1 || levels > 30 || r < 1 || n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hl = h / r;
+  const int wl = w / r;
+  if (n == 0 || hl == 0 || wl == 0) return static_cast<int>(cudaSuccess);
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((wl + kBlockX - 1) / kBlockX, (hl + kBlockY - 1) / kBlockY, n);
+  evaluate_forest_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      depth, out, h, w, r, scale, forest, trees, levels, classes, filter,
+      filter_class, write_all_eligible);
   return static_cast<int>(cudaGetLastError());
 }
 

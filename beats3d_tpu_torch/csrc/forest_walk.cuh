@@ -1,7 +1,8 @@
-// Per-pixel tree walk over the dense reference forest layout, shared by the
-// forest kernels (the layered kernel in forest_eval.cu today; the
-// single-forest and training-feature kernels are to share it, so train-time
-// and eval-time features stay bit-identical).
+// Per-pixel depth feature and tree walk over the dense reference forest
+// layout, shared by the forest kernels (the layered and single-forest
+// kernels in forest_eval.cu) and the training split-bit kernel
+// (train_features.cu), so train-time and eval-time features stay
+// bit-identical.
 //
 // Forest layout: float32 (T, 2^D - 1, 7 + 2C), node g of level j at row
 // (1 << j) - 1 + g, fields (ux, uy, vx, vy, thresh, l_next, r_next,
@@ -35,25 +36,36 @@ __device__ __forceinline__ int probe_offset(float scale, float u, float d) {
 }
 
 // Shotton depth-difference feature f = D(p + u/d) - D(p + v/d) at centre
-// pixel (y, x) of centre depth d; f = 0 when d == 0.
+// pixel (y, x) of centre depth d, probe offsets u = (ux, uy), v = (vx, vy);
+// f = 0 when d == 0.
+__device__ __forceinline__ float depth_feature_uv(
+    const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
+    float scale, float ux, float uy, float vx, float vy) {
+  if (d == 0.0f) return 0.0f;
+  const float du = probe_depth(img, h, w, y + probe_offset(scale, uy, d),
+                               x + probe_offset(scale, ux, d));
+  const float dv = probe_depth(img, h, w, y + probe_offset(scale, vy, d),
+                               x + probe_offset(scale, vx, d));
+  return __fsub_rn(du, dv);
+}
+
+// The same feature with the offsets read from a forest node row.
 __device__ __forceinline__ float depth_feature(
     const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
     float scale, const float* __restrict__ node) {
   if (d == 0.0f) return 0.0f;
-  const float du = probe_depth(img, h, w, y + probe_offset(scale, __ldg(node + 1), d),
-                               x + probe_offset(scale, __ldg(node + 0), d));
-  const float dv = probe_depth(img, h, w, y + probe_offset(scale, __ldg(node + 3), d),
-                               x + probe_offset(scale, __ldg(node + 2), d));
-  return __fsub_rn(du, dv);
+  return depth_feature_uv(img, h, w, y, x, d, scale, __ldg(node + 0),
+                          __ldg(node + 1), __ldg(node + 2), __ldg(node + 3));
 }
 
 // Walks one tree from its root for the pixel (y, x) of centre depth d.
-// Returns the C-class pdf of the leaf side reached, or nullptr when the walk
-// still descends after the last level (such a tree adds nothing).
-__device__ __forceinline__ const float* walk_tree(
+// Returns the C-class pdf of the leaf side reached and sets *stop_level to
+// the level of that node; returns nullptr, with *stop_level = levels, when
+// the walk still descends after the last level (such a tree adds nothing).
+__device__ __forceinline__ const float* walk_tree_level(
     const float* __restrict__ tree, int levels, int num_classes,
     const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
-    float scale) {
+    float scale, int* stop_level) {
   const int node_els = 7 + 2 * num_classes;
   int g = 0;
   for (int j = 0; j < levels; ++j) {
@@ -64,9 +76,21 @@ __device__ __forceinline__ const float* walk_tree(
       g = 2 * g + side;
       continue;
     }
+    *stop_level = j;
     return node + 7 + side * num_classes;
   }
+  *stop_level = levels;
   return nullptr;
+}
+
+// walk_tree_level without the level.
+__device__ __forceinline__ const float* walk_tree(
+    const float* __restrict__ tree, int levels, int num_classes,
+    const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
+    float scale) {
+  int stop_level;
+  return walk_tree_level(tree, levels, num_classes, img, h, w, y, x, d, scale,
+                         &stop_level);
 }
 
 }  // namespace b3d

@@ -30,6 +30,16 @@ FINGER_COLORS = [
 PALM_COLOR = (210, 160, 120)
 
 
+def part_labels(color):
+    """Class ids of a rendered colour image (H, W, 3) uint8: the palm (and
+    forearm) colour -> 1, finger k's colour -> 2 + k, anything else -> 0.
+    Returns (H, W) uint16; seven classes in all."""
+    labels = np.zeros(color.shape[:2], np.uint16)
+    for class_id, rgb in enumerate([PALM_COLOR] + FINGER_COLORS, start=1):
+        labels[np.all(color == np.array(rgb, np.uint8), axis=-1)] = class_id
+    return labels
+
+
 def _rot2(a):
     c, s = np.cos(a), np.sin(a)
     return np.array([[c, -s], [s, c]], np.float32)

@@ -1,4 +1,5 @@
-from .forest import DecisionForest, PackedForest
+from .forest import DecisionForest, DecisionTree, PackedForest
 from .layered import LayeredDecisionForest
 
-__all__ = ["DecisionForest", "PackedForest", "LayeredDecisionForest"]
+__all__ = ["DecisionForest", "DecisionTree", "PackedForest",
+           "LayeredDecisionForest"]

@@ -23,10 +23,15 @@ import dataclasses
 import gzip
 import io
 import os
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
+
+
+def forest_config(max_depth: int, num_classes: int):
+    """(total_nodes, max_leaf_nodes, node_els) of a packed tree."""
+    return (2 ** max_depth) - 1, 2 ** max_depth, 7 + 2 * num_classes
 
 
 def forest_dims(shape):
@@ -39,13 +44,42 @@ def forest_dims(shape):
 
 
 @dataclasses.dataclass
+class DecisionTree:
+    """One tree in packed layout (host numpy), shape (total_nodes, 7 + 2C),
+    level order: node g of level j is row 2**j - 1 + g."""
+
+    max_depth: int
+    num_classes: int
+    data: np.ndarray = None
+
+    def __post_init__(self):
+        total, _, els = forest_config(self.max_depth, self.num_classes)
+        if self.data is None:
+            self.data = np.zeros((total, els), dtype=np.float32)
+        assert self.data.shape == (total, els), self.data.shape
+
+    @property
+    def total_nodes(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass
 class DecisionForest:
-    """A forest in packed layout (host numpy), shape (T, total_nodes, 7+2C)."""
+    """A forest in packed layout (host numpy), shape (T, total_nodes, 7+2C).
+    ``pct_match`` is the held-out accuracy the trainer measured, if any."""
 
     num_trees: int
     max_depth: int
     num_classes: int
-    data: np.ndarray
+    data: np.ndarray = None
+    pct_match: Optional[float] = None
+
+    def __post_init__(self):
+        total, _, els = forest_config(self.max_depth, self.num_classes)
+        if self.data is None:
+            self.data = np.zeros((self.num_trees, total, els),
+                                 dtype=np.float32)
+        assert self.data.shape == (self.num_trees, total, els), self.data.shape
 
     @staticmethod
     def load(path: str) -> "DecisionForest":
@@ -60,6 +94,21 @@ class DecisionForest:
             arr = np.load(path)
         arr = arr.astype(np.float32)
         return DecisionForest(*forest_dims(arr.shape), arr)
+
+    def save(self, path: str) -> None:
+        """The reference .npy layout, byte for byte what the JAX package's
+        ``DecisionForest.save`` writes."""
+        np.save(path, self.data)
+
+    @staticmethod
+    def from_trees(trees: List[DecisionTree]) -> "DecisionForest":
+        t0 = trees[0]
+        data = np.stack([t.data for t in trees]).astype(np.float32)
+        return DecisionForest(len(trees), t0.max_depth, t0.num_classes, data)
+
+    def pack(self, device="cpu") -> "PackedForest":
+        """Per-level tables of this forest on ``device``."""
+        return PackedForest.from_flat(torch.as_tensor(self.data, device=device))
 
 
 @dataclasses.dataclass

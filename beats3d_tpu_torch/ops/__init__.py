@@ -7,4 +7,6 @@ from . import (  # noqa: F401
     plane,
     points,
     preproc_cuda,
+    train_features,
+    train_features_cuda,
 )

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/*.cu`` are compiled by ``nvcc`` into one shared library with a plain C
-interface, at first use, into ``build/beats3d_tpu_torch/`` beside the
-package, and bound with ``ctypes``.  The library's name carries a hash of
+``csrc/*.cu`` are compiled by ``nvcc`` at first use, one ``nvcc`` process per
+source, all started together, and linked into one shared library with a
+plain C interface in ``build/beats3d_tpu_torch/`` beside the package, bound
+with ``ctypes``.  The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale build is
 never loaded.  Nothing here runs at import time: the CPU tests import every
 module on hosts without ``nvcc``.
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -32,7 +34,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "beats3d_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",
     "-prec-sqrt=true", "-Xptxas", "-v",
 )
 
@@ -101,14 +103,30 @@ def _compile() -> Build:
         return Build(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for obj, proc in jobs:
+            log += proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(os.path.basename(obj))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+             *[obj for obj, _ in jobs]],
+            capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, path)
     return Build(path, seconds, log)
 
@@ -123,6 +141,12 @@ def _bind(lib):
         vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp,
     ]
     lib.b3d_plane_band_gauss.restype = i
+    lib.b3d_evaluate_forest.argtypes = [
+        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, vp,
+    ]
+    lib.b3d_evaluate_forest.restype = i
+    lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
+    lib.b3d_train_feature_bits.restype = i
     lib.b3d_error_string.argtypes = [i]
     lib.b3d_error_string.restype = ctypes.c_char_p
     return lib

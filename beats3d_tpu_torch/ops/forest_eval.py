@@ -152,6 +152,13 @@ def evaluate_forest(depth, tables: Tuple, *, labels_reduce: int = 1,
     return labels.to(depth.dtype)
 
 
+def evaluate_tree(depth, tables: Tuple):
+    """Single-tree semantics: full resolution, no filter, unit scale;
+    pixels whose walk does not end in a leaf keep 65535."""
+    return evaluate_forest(depth, tables, labels_reduce=1,
+                           write_all_eligible=False)
+
+
 def composite_labels(label_images, conditions):
     """Combine per-layer label images (M, N, Hl, Wl) into final class ids
     through the conditions table (K, 2): per pixel, walk the layers with a

@@ -1,21 +1,28 @@
-"""Layered forest evaluation + conditions composite (kernel K1,
-csrc/forest_eval.cu), the counterpart of
-beats3d_tpu/ops/forest_eval_pallas.py:evaluate_layered_pallas.
+"""Forest evaluation kernels of csrc/forest_eval.cu:
 
-:func:`evaluate_layered_cuda` launches the CUDA kernel for CUDA tensors and
-runs its plain version, :func:`.forest_eval.run_layered`, for CPU tensors.
-There is no fallback from one to the other.
+* K1, :func:`evaluate_layered_cuda`: every layer of a layered forest plus the
+  conditions composite, the counterpart of
+  beats3d_tpu/ops/forest_eval_pallas.py:evaluate_layered_pallas;
+* B1, :func:`evaluate_forest_cuda`: one forest, with an optional filter
+  image, probe scale and single-tree semantics, the counterpart of
+  beats3d_tpu/ops/forest_eval_pallas.py:evaluate_forest_pallas.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version (:mod:`.forest_eval`) for CPU tensors.  There is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..models.forest import PackedForest, forest_dims
 from . import cuda_lib, forest_eval
 
 MAX_LAYERS = 4
 MAX_CLASSES = 16
 MAX_CONDITIONS = 128
+MAX_TREES = 16
 
 
 def kernel_supports(layers, conditions) -> bool:
@@ -102,3 +109,79 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
 
 # Kernel launches so far (the CPU path does not count).
 evaluate_layered_cuda.launches = 0
+
+
+def evaluate_forest_plain(depth, forest, *, labels_reduce: int = 1,
+                          filter_images=None, filter_class: int = -1,
+                          scale_factor: float = 1.0,
+                          write_all_eligible: bool = True):
+    """The B1 kernel's plain version, on any device."""
+    return forest_eval.evaluate_forest(
+        depth, PackedForest.from_flat(forest).tables(),
+        labels_reduce=labels_reduce, filter_images=filter_images,
+        filter_class=filter_class, scale_factor=scale_factor,
+        write_all_eligible=write_all_eligible)
+
+
+def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
+                         filter_images=None, filter_class: int = -1,
+                         scale_factor: float = 1.0,
+                         write_all_eligible: bool = True):
+    """Labels of one forest on the stride-r grid.
+
+    depth: (N, H, W); forest: dense (T, 2**D - 1, 7 + 2C) float32;
+    filter_images: optional (N, H//r, W//r), a pixel is evaluated only where
+    it equals ``filter_class``; ``write_all_eligible=False`` writes only the
+    pixels where every tree reached a leaf (single-tree semantics).  Returns
+    (N, H//r, W//r) labels, 65535 where not written.  On CUDA: depth
+    contiguous int32, the forest contiguous float32 with T <= 16 and
+    C <= 16, the filter contiguous int32, all on one card; returns int32.
+    On the CPU: the plain version, in the depth's dtype.
+    """
+    kw = dict(labels_reduce=labels_reduce, filter_images=filter_images,
+              filter_class=filter_class, scale_factor=scale_factor,
+              write_all_eligible=write_all_eligible)
+    if depth.device.type != "cuda":
+        return evaluate_forest_plain(depth, forest, **kw)
+    if depth.dtype != torch.int32 or not depth.is_contiguous() or depth.dim() != 3:
+        raise ValueError(
+            f"evaluate_forest_cuda: depth must be contiguous (N, H, W) int32, "
+            f"got {depth.dtype} {tuple(depth.shape)}")
+    if (forest.device != depth.device or forest.dtype != torch.float32
+            or not forest.is_contiguous() or forest.dim() != 3):
+        raise ValueError(
+            "evaluate_forest_cuda: the forest must be a contiguous "
+            "(T, 2**D - 1, 7 + 2C) float32 tensor on the depth's device")
+    trees, levels, classes = forest_dims(forest.shape)
+    if not (1 <= trees <= MAX_TREES and classes <= MAX_CLASSES):
+        raise ValueError(
+            f"evaluate_forest_cuda: the kernel takes <= {MAX_TREES} trees "
+            f"and <= {MAX_CLASSES} classes, got {trees} and {classes}")
+    n, h, w = depth.shape
+    r = int(labels_reduce)
+    out_shape = (n, h // r, w // r)
+    if filter_images is not None and (
+            filter_images.device != depth.device
+            or filter_images.dtype != torch.int32
+            or not filter_images.is_contiguous()
+            or tuple(filter_images.shape) != out_shape):
+        raise ValueError(
+            f"evaluate_forest_cuda: filter_images must be a contiguous "
+            f"{out_shape} int32 tensor on the depth's device")
+    out = torch.empty(out_shape, dtype=torch.int32, device=depth.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.b3d_evaluate_forest(
+            depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
+            forest.data_ptr(), trees, levels, classes,
+            None if filter_images is None else filter_images.data_ptr(),
+            int(filter_class), int(bool(write_all_eligible)), stream,
+        )
+    cuda_lib.check(status, "evaluate_forest_cuda")
+    evaluate_forest_cuda.launches += 1
+    return out
+
+
+# Kernel launches so far (the CPU path does not count).
+evaluate_forest_cuda.launches = 0

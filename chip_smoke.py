@@ -3,16 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the main path's shapes, drives the live instrument
-(BeatsApp on the committed flagship model, 848x480 synthetic frames, RANSAC
-plane, ~60 frames) and one batched call, checks that both kernels ran on
-that path and that the outputs are right, and compares the card with the
-port's plain path on the CPU.  Any failure raises (exit code != 0).
+Builds the port's CUDA kernels from csrc/ and holds each against its plain
+PyTorch version at its path's shapes.  Then drives the port's two paths:
 
-Output: one line per phase; then a JSON line of per-kernel results, the
-card's `name, power.limit` line, and last the device JSON line.  Needs a
-CUDA card; imports nothing of JAX.
+* the live instrument (BeatsApp on the committed flagship model, 848x480
+  synthetic frames, RANSAC plane, ~60 frames) and one batched call, through
+  K1 (layered forest) and K2 (plane band + gaussian), compared with the
+  port's plain path on the CPU;
+* forest training at the flagship fine layer's width (D=16, C=7, 848x480
+  frames, 128 proposals in blocks of 64, 4 images per block), through B4
+  (training split bits) and B1 (single-forest evaluation), plus a reduced
+  D=8 run compared with the CPU and with streaming.
+
+Each path checks that its kernels ran on it and that the outputs are right.
+Any failure raises (exit code != 0).
+
+Output: one JSON line per phase; then the phases' wall times, a JSON line of
+per-kernel results, the card's `name, power.limit` line, and last the device
+JSON line.  Needs a CUDA card; imports nothing of JAX.
 """
 
 import json
@@ -27,23 +35,34 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from beats3d_tpu_torch.data.synth import articulated_scene  # noqa: E402
+from beats3d_tpu_torch.data.blocks import CompressedDataset  # noqa: E402
+from beats3d_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
+from beats3d_tpu_torch.data.synth import (  # noqa: E402
+    articulated_scene, part_labels,
+)
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
+from beats3d_tpu_torch.models.forest import PackedForest  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
-    cuda_lib, forest_eval_cuda, points, preproc_cuda,
+    cuda_lib, forest_eval, forest_eval_cuda, points, preproc_cuda,
+    train_features, train_features_cuda,
 )
 from beats3d_tpu_torch.ops import plane as plane_ops  # noqa: E402
 from beats3d_tpu_torch.runtime import pipeline as pl  # noqa: E402
 from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp  # noqa: E402
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
+from beats3d_tpu_torch.train import make_random_features, train_forest  # noqa: E402
 from beats3d_tpu_torch.utils import CameraIntrinsics  # noqa: E402
 
 FLAGSHIP = os.path.join(HERE, "models", "flagship")
 K1 = forest_eval_cuda.evaluate_layered_cuda
 K2 = preproc_cuda.plane_band_gauss_cuda
+B1 = forest_eval_cuda.evaluate_forest_cuda
+B4 = train_features_cuda.train_feature_bits_cuda
 APP_FRAMES = 60
 BATCH = 16
+CLASSES = 7          # background, palm, five fingers
+TRAIN_FRAMES, TEST_FRAMES = 16, 4
 
 
 def say(phase, **kw):
@@ -288,17 +307,194 @@ def phase_card_vs_cpu(model, scenes, plane, intrin):
         heights_max_rel_err=worst)
 
 
+def hand_frames(intrin, seeds):
+    """(depth, labels) uint16 stacks of single-hand 848x480 training frames;
+    the labels come from the rendered colours (part_labels)."""
+    scenes = [articulated_scene(intrin, np.random.default_rng(s),
+                                two_hands=False) for s in seeds]
+    return (np.stack([d for d, _ in scenes]),
+            np.stack([part_labels(c) for _, c in scenes]))
+
+
+def phase_b4(intrin, dev):
+    depth, labels = hand_frames(intrin, range(2000, 2004))
+    d = torch.as_tensor(depth).to(dev).to(torch.int32).contiguous()
+    active = torch.as_tensor(labels > 0).to(dev)
+    props = torch.as_tensor(make_random_features(
+        64, np.random.default_rng(5))).to(dev)
+    res = {}
+    for name, act in (("active", active), ("all", None)):
+        got = B4(d, props, act)
+        want = train_features.train_feature_bits_plain(d, props, act)
+        torch.cuda.synchronize()
+        diff = got != want
+        res[name] = dict(
+            word_mismatches=int(diff.sum()),
+            max_abs_err=int(diff.any()),     # over the unpacked 0/1 bits
+            ms=cuda_ms(lambda: B4(d, props, act)),
+            plain_ms=cuda_ms(lambda: train_features.train_feature_bits_plain(
+                d, props, act), iters=3))
+        say("b4_vs_plain", pixels=name, shape=list(d.shape), proposals=64,
+            active_pixels=int(active.sum()), **res[name])
+        if res[name]["word_mismatches"]:
+            raise AssertionError(f"B4 vs plain ({name} pixels): "
+                                 f"{res[name]['word_mismatches']} words differ")
+    return res["active"]
+
+
+def phase_b1(model, dev):
+    """The flagship fine layer (D=16, T=4, C=7) as a single forest on the
+    golden depth frames."""
+    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    depth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
+    fine = model.layers[1]                      # flat + per-level tables
+    one = model.layers[1].flat[:1].contiguous()
+    one_tables = PackedForest.from_flat(one).tables()
+    coarse = B1(depth, model.layers[0].flat, labels_reduce=2)
+    cases = {
+        "golden_r1": (fine.flat, fine.forest.tables(), dict(labels_reduce=1)),
+        "filter_r2": (fine.flat, fine.forest.tables(),
+                      dict(labels_reduce=2, filter_images=coarse,
+                           filter_class=1)),
+        "scale_0.5": (fine.flat, fine.forest.tables(),
+                      dict(labels_reduce=2, scale_factor=0.5)),
+        "one_tree": (one, one_tables,
+                     dict(labels_reduce=1, write_all_eligible=False)),
+    }
+    res = {}
+    for name, (flat, tables, kw) in cases.items():
+        got = B1(depth, flat, **kw)
+        want = forest_eval.evaluate_forest(depth, tables, **kw)
+        torch.cuda.synchronize()
+        res[name] = dict(
+            mismatches=int((got != want).sum()),
+            max_abs_err=int((got - want).abs().max()),
+            written=int((got != 65535).sum()),
+            ms=cuda_ms(lambda: B1(depth, flat, **kw)),
+            plain_ms=cuda_ms(lambda: forest_eval.evaluate_forest(
+                depth, tables, **kw), iters=2, warmup=1))
+        say("b1_vs_plain", case=name, shape=list(depth.shape),
+            trees=int(flat.shape[0]), **res[name])
+    bad = {k: v["mismatches"] for k, v in res.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"B1 vs plain mismatches: {bad}")
+    return res
+
+
+def phase_train(intrin, dev, smi):
+    """train_forest at the flagship fine layer's width on the card."""
+    d_tr, l_tr = hand_frames(intrin, range(3000, 3000 + TRAIN_FRAMES))
+    d_te, l_te = hand_frames(intrin, range(3100, 3100 + TEST_FRAMES))
+    train = ArrayDataset(d_tr, l_tr, CLASSES, images_per_block=4)
+    test = ArrayDataset(d_te, l_te, CLASSES)
+    counts = np.bincount(l_te.ravel(), minlength=CLASSES)[1:]
+    majority = float(counts.max() / counts.sum())
+    stamps = []
+    B1.launches = B4.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    forest = train_forest(
+        train, test, num_random_features=128, proposals_per_block=64,
+        images_per_block=4, max_tree_depth=16, trees_in_forest=2,
+        trees_to_try=3, rng=np.random.default_rng(13), device=dev,
+        log=lambda msg: stamps.append((time.perf_counter(), msg)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (B4.launches, B1.launches)
+    starts = [t for t, m in stamps if m.startswith("training candidate")]
+    starts.append(next(t for t, m in stamps if m.startswith("FOREST")))
+    per_tree = [b - a for a, b in zip(starts, starts[1:])]
+    used = np.abs(forest.data).sum(axis=2) > 0           # (T, nodes)
+    levels = [int(np.floor(np.log2(np.flatnonzero(u).max() + 1))) + 1
+              for u in used]
+    pct = forest.pct_match
+    say("train_path", card=smi, train_frames=TRAIN_FRAMES,
+        test_frames=TEST_FRAMES, depth=16, classes=CLASSES, proposals=128,
+        seconds=seconds, seconds_per_candidate_tree=per_tree,
+        levels_reached=levels, pct_match=pct, majority_share=majority,
+        peak_device_bytes=int(torch.cuda.max_memory_allocated()),
+        b4_launches=launches[0], b1_launches=launches[1],
+        forest_shape=list(forest.data.shape))
+    if min(launches) < 1:
+        raise AssertionError(f"train path launches (B4, B1) = {launches}")
+    if forest.data.shape != (2, 65535, 2 * CLASSES + 7):
+        raise AssertionError(f"forest shape {forest.data.shape}")
+    if not (np.isfinite(pct) and pct > majority):
+        raise AssertionError(f"pct_match {pct} vs majority share {majority}")
+    return launches
+
+
+def reduced_case(intrin):
+    """2 train + 1 test 848x480 frames, D=8, 64 proposals in one block, one
+    candidate tree."""
+    d, l = hand_frames(intrin, range(3200, 3203))
+    cfg = dict(num_random_features=64, proposals_per_block=64,
+               max_tree_depth=8, trees_in_forest=1, trees_to_try=1,
+               log=lambda *a: None)
+    return (ArrayDataset(d[:2], l[:2], CLASSES),
+            ArrayDataset(d[2:], l[2:], CLASSES), cfg)
+
+
+def phase_train_card_vs_cpu(intrin, dev):
+    train, test, cfg = reduced_case(intrin)
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        out[name] = train_forest(train, test, rng=np.random.default_rng(17),
+                                 device=device, **cfg)
+        out[name + "_s"] = time.perf_counter() - t0
+    equal = out["card"].data.tobytes() == out["cpu"].data.tobytes()
+    say("train_card_vs_cpu", depth=8, frames=[2, 1], trees_equal=equal,
+        pct_match_card=out["card"].pct_match,
+        pct_match_cpu=out["cpu"].pct_match,
+        card_seconds=out["card_s"], cpu_seconds=out["cpu_s"])
+    if not equal or out["card"].pct_match != out["cpu"].pct_match:
+        raise AssertionError("training on the card differs from the CPU")
+
+
+def phase_train_streaming(intrin, dev):
+    train, test, cfg = reduced_case(intrin)
+    kw = dict(device=dev, **cfg)
+    resident = train_forest(train, test, rng=np.random.default_rng(19), **kw)
+    codec = train_forest(train, test, rng=np.random.default_rng(19),
+                         streaming=True, **kw)
+    zlib = train_forest(CompressedDataset(train), test,
+                        rng=np.random.default_rng(19), streaming=True, **kw)
+    ref = resident.data.tobytes()
+    equal = dict(device_codec=codec.data.tobytes() == ref,
+                 host_zlib=zlib.data.tobytes() == ref)
+    say("train_streaming", depth=8, trees_equal=equal,
+        pct_match=resident.pct_match)
+    if not all(equal.values()):
+        raise AssertionError(f"streamed trees differ from resident: {equal}")
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
+    walls = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    run("build", phase_build)
     intrin = CameraIntrinsics.d415()
-    scenes, frames, plane, k2 = phase_preproc(intrin, dev)
+    scenes, frames, plane, k2 = run("k2_vs_plain", phase_preproc, intrin, dev)
     model = load_flagship(dev)
     pipe = pl.FramePipeline(model, intrin)
-    k1 = phase_layered(model, pipe, frames, plane, dev)
-    _, launches = phase_main_path(model, frames, plane, intrin, smi)
-    phase_card_vs_cpu(model, scenes, plane, intrin)
+    k1 = run("k1_vs_plain", phase_layered, model, pipe, frames, plane, dev)
+    _, launches = run("main_path", phase_main_path, model, frames, plane,
+                      intrin, smi)
+    run("card_vs_cpu", phase_card_vs_cpu, model, scenes, plane, intrin)
+    b4 = run("b4_vs_plain", phase_b4, intrin, dev)
+    b1 = run("b1_vs_plain", phase_b1, model, dev)
+    train_launches = run("train_path", phase_train, intrin, dev, smi)
+    run("train_card_vs_cpu", phase_train_card_vs_cpu, intrin, dev)
+    run("train_streaming", phase_train_streaming, intrin, dev)
+    say("wall_seconds", **walls)
     print(json.dumps({"kernels": [
         {"name": "evaluate_layered_cuda", "route": "cuda",
          "source": "beats3d_tpu_torch/csrc/forest_eval.cu",
@@ -310,6 +506,17 @@ def main():
          "replaces": "beats3d_tpu/ops/preproc_pallas.py:126",
          "launches": launches[1], "max_abs_err": k2[1]["max_abs_err"],
          "ms": k2[1]["ms"], "plain_ms": k2[1]["plain_ms"]},
+        {"name": "evaluate_forest_cuda", "route": "cuda",
+         "source": "beats3d_tpu_torch/csrc/forest_eval.cu",
+         "replaces": "beats3d_tpu/ops/forest_eval_pallas.py:1940",
+         "launches": train_launches[1],
+         "max_abs_err": max(v["max_abs_err"] for v in b1.values()),
+         "ms": b1["golden_r1"]["ms"], "plain_ms": b1["golden_r1"]["plain_ms"]},
+        {"name": "train_feature_bits_cuda", "route": "cuda",
+         "source": "beats3d_tpu_torch/csrc/train_features.cu",
+         "replaces": "beats3d_tpu/ops/train_features_pallas.py:191",
+         "launches": train_launches[0], "max_abs_err": b4["max_abs_err"],
+         "ms": b4["ms"], "plain_ms": b4["plain_ms"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ import torch
 import fixtures
 
 from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.ops import forest_eval_cuda, points, preproc_cuda
+from beats3d_tpu_torch.ops import (forest_eval_cuda, points, preproc_cuda,
+                                   train_features, train_features_cuda)
+from beats3d_tpu_torch.train.proposals import make_random_features
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(os.path.dirname(HERE), "models", "flagship")
@@ -107,3 +109,83 @@ def test_preproc_kernel_single_frame_and_dtype(cuda_dev):
     with pytest.raises(ValueError):
         preproc_cuda.plane_band_gauss_cuda(depth.to(torch.int64), mat, pp,
                                            150.0, 40.0)
+
+
+def _b4_inputs(rng_np, dev, p):
+    depth = fixtures.random_depth_image(rng_np, 3, 40, 72)
+    depth[0, 5, 7] = 0          # a zero centre
+    depth[1, 0, 0] = 65535      # a sentinel centre
+    props = make_random_features(p, rng_np)
+    props[0, 0:2] = (1.0e6, -1.0e6)   # probes far out of bounds
+    active = rng_np.random(depth.shape) < 0.6
+    return (torch.as_tensor(depth).to(dev).to(torch.int32).contiguous(),
+            torch.as_tensor(props).to(dev),
+            torch.as_tensor(active).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 32, 33, 64])
+def test_train_bits_kernel_matches_plain(rng_np, cuda_dev, p):
+    depth, props, active = _b4_inputs(rng_np, cuda_dev, p)
+    k = train_features_cuda.train_feature_bits_cuda
+    before = k.launches
+    for act in (None, active):
+        got = k(depth, props, act)
+        want = train_features.train_feature_bits_plain(depth, props, act)
+        torch.cuda.synchronize()
+        assert got.shape == (3, (p + 31) // 32, 40, 72)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert k.launches == before + 2
+    assert got.cpu().numpy().any()
+
+
+@pytest.mark.cuda
+def test_train_bits_kernel_rejects_bad_input(rng_np, cuda_dev):
+    depth, props, active = _b4_inputs(rng_np, cuda_dev, 8)
+    k = train_features_cuda.train_feature_bits_cuda
+    with pytest.raises(ValueError):
+        k(depth.to(torch.int64), props)
+    with pytest.raises(ValueError):
+        k(depth, props.cpu())
+    with pytest.raises(ValueError):
+        k(depth, props, active.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,scale,filtered,write_all", [
+    (1, 1.0, False, True), (2, 1.0, True, True), (2, 0.5, True, False),
+    (1, 0.5, False, False), (2, 0.25, False, True)])
+def test_forest_kernel_matches_plain(rng_np, cuda_dev, r, scale, filtered,
+                                     write_all):
+    flat = torch.as_tensor(fixtures.random_forest_flat(rng_np, 3, 6, 5))
+    flat = flat.to(cuda_dev).contiguous()
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 48, 96))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    kw = dict(labels_reduce=r, scale_factor=scale, write_all_eligible=write_all)
+    if filtered:
+        filt = rng_np.integers(0, 3, size=(2, 48 // r, 96 // r))
+        kw.update(filter_images=torch.as_tensor(filt).to(cuda_dev).to(torch.int32),
+                  filter_class=1)
+    k = forest_eval_cuda.evaluate_forest_cuda
+    before = k.launches
+    got = k(depth, flat, **kw)
+    want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (got.cpu().numpy() != 65535).any()
+
+
+@pytest.mark.cuda
+def test_forest_kernel_rejects_bad_input(rng_np, cuda_dev):
+    flat = torch.as_tensor(fixtures.random_forest_flat(rng_np, 2, 4, 5))
+    depth = torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda_dev)
+    k = forest_eval_cuda.evaluate_forest_cuda
+    with pytest.raises(ValueError):
+        k(depth, flat)                                  # forest on the CPU
+    with pytest.raises(ValueError):
+        k(depth.to(torch.int16), flat.to(cuda_dev))
+    with pytest.raises(ValueError):
+        k(depth, flat.to(cuda_dev), labels_reduce=2,
+          filter_images=torch.zeros((1, 8, 8), dtype=torch.int64,
+                                    device=cuda_dev))

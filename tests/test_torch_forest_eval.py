@@ -165,3 +165,78 @@ def test_flagship_golden_labels():
         device="cpu")
     got = model.run(torch.as_tensor(data["depth"][:1]))
     np.testing.assert_array_equal(got[0].numpy(), data["labels"][0][::2, ::2])
+
+
+def test_evaluate_tree_matches_jax(rng):
+    depth = fixtures.random_depth_image(rng, 2, 24, 32)
+    tree = fixtures.random_tree_flat(rng, 6, 5, leaf_prob=0.15)
+    tree[31:, 5] = -1.0     # last-level left sides descend: walks not done
+    want = np.asarray(jfe.evaluate_tree(
+        jnp.asarray(depth), JaxPacked.from_flat(tree[None]).tables()))
+    got = forest_eval.evaluate_tree(torch.as_tensor(depth), _tables(tree[None]))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 65535).sum() > (depth == 0).sum() + (depth == 65535).sum()
+
+
+@pytest.mark.parametrize("r,write_all", [(1, False), (2, True)])
+def test_forest_wrapper_cpu_path_matches_pallas(rng, r, write_all):
+    """evaluate_forest_cuda on CPU tensors (its plain version) against the
+    Pallas kernel B1 replaces, in interpret mode, with a filter image."""
+    depth = fixtures.random_depth_image(rng, 2, 16, 24)
+    flat = fixtures.random_forest_flat(rng, 2, 4, 4, leaf_prob=0.2)
+    filt = rng.integers(0, 3, size=(2, 16 // r, 24 // r)).astype(np.int32)
+    tables, meta = fep.pack_tables_pallas(flat)
+    k = forest_eval_cuda.evaluate_forest_cuda
+    for scale in (1.0, 0.5):
+        want = np.asarray(fep.evaluate_forest_pallas(
+            jnp.asarray(depth), tables, meta, labels_reduce=r,
+            filter_images=jnp.asarray(filt), filter_class=1,
+            scale_factor=scale, write_all_eligible=write_all, interpret=True))
+        before = k.launches
+        got = k(torch.as_tensor(depth.astype(np.int32)), torch.as_tensor(flat),
+                labels_reduce=r, filter_images=torch.as_tensor(filt),
+                filter_class=1, scale_factor=scale,
+                write_all_eligible=write_all)
+        assert k.launches == before
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert ((want != 65535) & (want != 0)).any()
+
+
+def test_flagship_fine_forest_single_matches_jax():
+    """The committed flagship's fine layer (D=16, T=4, C=7) evaluated alone
+    on the golden depth frames, plain path against the JAX evaluator."""
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    flat = DecisionForest.load(os.path.join(FLAGSHIP, "m1.npy")).data
+    assert flat.shape == (4, 65535, 21)
+    depth = data["depth"][:1]
+    want = np.asarray(jfe.evaluate_forest(
+        jnp.asarray(depth), JaxPacked.from_flat(flat).tables(),
+        labels_reduce=2))
+    got = forest_eval_cuda.evaluate_forest_cuda(
+        torch.as_tensor(depth.astype(np.int32)), torch.as_tensor(flat),
+        labels_reduce=2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) >= 5
+
+
+def test_run_live_frame_matches_jax(rng):
+    """apps/run_live_torch.py's frame function against the JAX app's on one
+    synthetic 848x480 frame."""
+    from apps import run_live, run_live_torch
+    from beats3d_tpu_torch.data.synth import articulated_scene
+    from beats3d_tpu_torch.utils import CameraIntrinsics
+
+    intrin = CameraIntrinsics.d415()
+    depth, _ = articulated_scene(intrin, np.random.default_rng(2000))
+    flat = fixtures.random_forest_flat(rng, 2, 6, 7, off_mag=60000.0)
+    mat = np.eye(4, dtype=np.float32)
+    mat[2, 3] = -2600.0
+    want = np.asarray(run_live._frame(
+        jnp.asarray(depth), jnp.asarray(mat), jnp.asarray(intrin.pp),
+        jnp.float32(intrin.fx), JaxPacked.from_flat(flat).tables(),
+        jnp.float32(40.0)))
+    got = run_live_torch.frame_labels(
+        torch.as_tensor(depth.astype(np.int32)), torch.as_tensor(mat),
+        intrin.pp, intrin.fx, torch.as_tensor(flat), 40.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 65535).any() and (want != 65535).sum() > 10000

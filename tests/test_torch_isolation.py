@@ -34,7 +34,11 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import beats3d_tpu_torch, beats3d_tpu_torch.runtime.app, "
-        "beats3d_tpu_torch.runtime.camera, beats3d_tpu_torch.data.synth\n"
+        "beats3d_tpu_torch.runtime.camera, beats3d_tpu_torch.data.synth, "
+        "beats3d_tpu_torch.train, beats3d_tpu_torch.data.dataset, "
+        "beats3d_tpu_torch.data.blocks, beats3d_tpu_torch.data.device_codec\n"
+        "import apps.train_model_torch, apps.test_on_saved_model_torch, "
+        "apps.run_live_torch\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'beats3d_tpu' "
@@ -54,8 +58,9 @@ def test_sources_import_no_jax():
         r"(?!_torch))", re.M)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
-    files += [os.path.join(ROOT, "chip_smoke.py"),
-              os.path.join(ROOT, "apps", "bz3d_torch.py")]
+    files += [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "apps", f"{name}_torch.py") for name in (
+        "bz3d", "train_model", "test_on_saved_model", "run_live")]
     assert len(files) > 15
     for path in files:
         with open(path) as f:
