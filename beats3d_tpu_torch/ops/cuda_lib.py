@@ -147,6 +147,17 @@ def _bind(lib):
     lib.b3d_evaluate_forest.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
+    # the scripts/ probes (beats3d_tpu_torch/probes): pointers, ints, stream
+    for name, n_ptrs, n_ints in (
+            ("b3d_probe_opcost", 3, 3), ("b3d_probe_reduce", 2, 3),
+            ("b3d_probe_loopcost", 2, 3), ("b3d_probe_loopcost2", 2, 4),
+            ("b3d_probe_batchmin", 2, 3), ("b3d_probe_axis0", 3, 3),
+            ("b3d_probe_vgather_run", 3, 2), ("b3d_probe_vgather8", 3, 0),
+            ("b3d_probe_vgather16", 3, 0), ("b3d_probe_prim", 4, 3),
+            ("b3d_probe_roll24", 3, 1), ("b3d_probe_dyngrid", 4, 2)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptrs + [i] * n_ints + [vp]
+        fn.restype = i
     lib.b3d_error_string.argtypes = [i]
     lib.b3d_error_string.restype = ctypes.c_char_p
     return lib

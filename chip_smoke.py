@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ and holds each against its plain
-PyTorch version at its path's shapes.  Then drives the port's two paths:
+PyTorch version at its path's shapes.  Then drives the port's paths:
 
 * the live instrument (BeatsApp on the committed flagship model, 848x480
   synthetic frames, RANSAC plane, ~60 frames) and one batched call, through
@@ -13,7 +13,11 @@ PyTorch version at its path's shapes.  Then drives the port's two paths:
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
   (training split bits) and B1 (single-forest evaluation), plus a reduced
-  D=8 run compared with the CPU and with streaming.
+  D=8 run compared with the CPU and with streaming;
+* the scripts/ Mosaic probes' counterparts (P1-P12,
+  ``python -m beats3d_tpu_torch.probes``): every script's cost table at the
+  script's shapes, then every mode at each of its counts held against the
+  plain versions (``mm_*`` must raise).
 
 Each path checks that its kernels ran on it and that the outputs are right.
 Any failure raises (exit code != 0).
@@ -40,6 +44,7 @@ from beats3d_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
 from beats3d_tpu_torch.data.synth import (  # noqa: E402
     articulated_scene, part_labels,
 )
+from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
 from beats3d_tpu_torch.models.forest import PackedForest  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
@@ -47,6 +52,8 @@ from beats3d_tpu_torch.ops import (  # noqa: E402
     train_features, train_features_cuda,
 )
 from beats3d_tpu_torch.ops import plane as plane_ops  # noqa: E402
+from beats3d_tpu_torch.probes import __main__ as probes_main  # noqa: E402
+from beats3d_tpu_torch.probes import tiles as probe_tiles  # noqa: E402
 from beats3d_tpu_torch.runtime import pipeline as pl  # noqa: E402
 from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp  # noqa: E402
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
@@ -63,6 +70,34 @@ APP_FRAMES = 60
 BATCH = 16
 CLASSES = 7          # background, palm, five fingers
 TRAIN_FRAMES, TEST_FRAMES = 16, 4
+# (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
+# source, the pallas_call it replaces)
+PROBE_KERNELS = (
+    ("P1", probes.try_reduce, "run", "serial_reduce", "probe_tile.cu",
+     "scripts/try_reduce.py:47"),
+    ("P2", probes.try_loopcost, "run", "dyn=True", "probe_tile.cu",
+     "scripts/try_loopcost.py:30"),
+    ("P3", probes.try_loopcost2, "run", "flat carries=8", "probe_tile.cu",
+     "scripts/try_loopcost2.py:46"),
+    ("P4", probes.try_axis0, "run", "axis0", "probe_gather.cu",
+     "scripts/try_axis0.py:40"),
+    ("P5", probes.try_dyngrid, "run", "tile_list", "probe_tile_list.cu",
+     "scripts/try_dyngrid.py:29"),
+    ("P6", probes.try_vgather, "run", "v8", "probe_gather.cu",
+     "scripts/try_vgather.py:62"),
+    ("P7", probes.try_vgather, "k_vgather", "k_vgather", "probe_gather.cu",
+     "scripts/try_vgather.py:82"),
+    ("P8", probes.try_vgather, "k_vgather16", "k_vgather16", "probe_gather.cu",
+     "scripts/try_vgather.py:90"),
+    ("P9", probes.prim_bench, "run", "serve_trip_4", "probe_gather.cu",
+     "scripts/prim_bench.py:166"),
+    ("P10", probes.try_batchmin, "run", "batched", "probe_tile.cu",
+     "scripts/try_batchmin.py:58"),
+    ("P11", probes.try_opcost, "run", "gather", "probe_tile.cu",
+     "scripts/try_opcost.py:58"),
+    ("P12", probes.repro_roll24, "run", "d=3", "probe_gather.cu",
+     "scripts/repro_roll24.py:45"),
+)
 
 
 def say(phase, **kw):
@@ -469,6 +504,71 @@ def phase_train_streaming(intrin, dev):
         raise AssertionError(f"streamed trees differ from resident: {equal}")
 
 
+def probe_wrapper_of(case):
+    """The wrapper a probe case launches: try_vgather's k_vgather and
+    k_vgather16 cases their own, every other case its module's run."""
+    kernel = dict(case.kw).get("kernel")
+    return kernel if kernel in ("k_vgather", "k_vgather16") else "run"
+
+
+def phase_probes_path(smi):
+    """The probes' entry point, python -m beats3d_tpu_torch.probes: every
+    script's table timed on the card; each of P1-P12 must launch."""
+    for _, mod, fn, *_ in PROBE_KERNELS:
+        getattr(mod, fn).launches = 0
+    tables = probes_main.main([])
+    launches = {p: getattr(mod, fn).launches
+                for p, mod, fn, *_ in PROBE_KERNELS}
+    say("probes_path", card=smi, scripts=len(tables), launches=launches)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"probe kernels not launched: {launches}")
+    return tables, launches
+
+
+def phase_probes_vs_plain(dev, tables, launches):
+    """Every mode of P1-P12 at each of its counts: kernel equal to plain on
+    the card (mm_* raise on both sides); then the plain versions' tables."""
+    res = {}
+    for p, mod, fn, _, _, _ in PROBE_KERNELS:
+        if mod.SCRIPT not in res:
+            res[mod.SCRIPT] = (
+                probe_tiles.compare(mod, dev),
+                {r["mode"]: r for r in tables[mod.SCRIPT]},
+                {r["mode"]: r for r in probe_tiles.table(mod, dev, plain=True,
+                                                         iters=3)})
+        checks, kern, plain = res[mod.SCRIPT]
+        rows = [(c, r) for c, r in zip(mod.CASES, checks)
+                if probe_wrapper_of(c) == fn]
+        say("probes_vs_plain", p=p, script=mod.SCRIPT, wrapper=fn,
+            modes_checked=len(rows),
+            counts_checked=sum(len(r.get("ks", [])) for _, r in rows),
+            mismatches=sum(r["mismatches"] for _, r in rows),
+            launches=launches[p],
+            ns_per_unit={c.mode: None if c.refused else
+                         {"kernel": kern[c.mode]["ns"],
+                          "plain": plain[c.mode]["ns"]} for c, _ in rows})
+    bad = {(s, r["mode"]): r["mismatches"] for s, (checks, _, _) in res.items()
+           for r in checks if r["mismatches"]}
+    if bad:
+        raise AssertionError(f"probe kernels vs plain: {bad}")
+    return res
+
+
+def probe_entries(res, launches):
+    out = []
+    for p, mod, fn, mode, src, replaces in PROBE_KERNELS:
+        checks, kern, plain = res[mod.SCRIPT]
+        errs = [r["max_abs_err"] for c, r in zip(mod.CASES, checks)
+                if probe_wrapper_of(c) == fn]
+        out.append({
+            "name": f"{mod.SCRIPT}.{fn} ({mode}, k={kern[mode]['ks'][-1]})",
+            "route": "cuda", "source": f"beats3d_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[p],
+            "max_abs_err": max(errs), "ms": kern[mode]["ms"][-1],
+            "plain_ms": plain[mode]["ms"][-1]})
+    return out
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -494,6 +594,9 @@ def main():
     train_launches = run("train_path", phase_train, intrin, dev, smi)
     run("train_card_vs_cpu", phase_train_card_vs_cpu, intrin, dev)
     run("train_streaming", phase_train_streaming, intrin, dev)
+    tables, probe_launches = run("probes_path", phase_probes_path, smi)
+    probe_res = run("probes_vs_plain", phase_probes_vs_plain, dev, tables,
+                    probe_launches)
     say("wall_seconds", **walls)
     print(json.dumps({"kernels": [
         {"name": "evaluate_layered_cuda", "route": "cuda",
@@ -514,10 +617,10 @@ def main():
          "ms": b1["golden_r1"]["ms"], "plain_ms": b1["golden_r1"]["plain_ms"]},
         {"name": "train_feature_bits_cuda", "route": "cuda",
          "source": "beats3d_tpu_torch/csrc/train_features.cu",
-         "replaces": "beats3d_tpu/ops/train_features_pallas.py:191",
+         "replaces": "beats3d_tpu/ops/train_features_pallas.py:191 and :238",
          "launches": train_launches[0], "max_abs_err": b4["max_abs_err"],
          "ms": b4["ms"], "plain_ms": b4["plain_ms"]},
-    ]}))
+    ] + probe_entries(probe_res, probe_launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -189,3 +189,124 @@ def test_forest_kernel_rejects_bad_input(rng_np, cuda_dev):
         k(depth, flat.to(cuda_dev), labels_reduce=2,
           filter_images=torch.zeros((1, 8, 8), dtype=torch.int64,
                                     device=cuda_dev))
+
+
+# ------------------------------------------------ the scripts/ probes (P1-P12)
+
+def _probe_tiles(rng_np, dev, nt, lo=-(1 << 31), hi=1 << 31):
+    t = rng_np.integers(lo, hi, (nt, 8, 128)).astype(np.int32)
+    return torch.as_tensor(t).to(dev)
+
+
+def _same_as_plain(fn, plain, *args, **kw):
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return got
+
+
+@pytest.mark.cuda
+def test_probe_tile_kernels_match_plain(rng_np, cuda_dev):
+    """csrc/probe_tile.cu (P1, P2, P3, P10, P11) against the plain versions,
+    on int32 values that wrap."""
+    from beats3d_tpu_torch.probes import (try_batchmin, try_loopcost,
+                                          try_loopcost2, try_opcost,
+                                          try_reduce)
+    x = _probe_tiles(rng_np, cuda_dev, 5)
+    small = _probe_tiles(rng_np, cuda_dev, 5, 0, 100)
+    idx = _probe_tiles(rng_np, cuda_dev, 5, 0, 128)
+    for op in try_opcost.OPS:
+        for k in (1, 2, 37):
+            _same_as_plain(try_opcost.run, try_opcost.run_plain,
+                           small if op == "fmath" else x, idx, op=op, k=k)
+    for mode in try_reduce.MODES:
+        _same_as_plain(try_reduce.run, try_reduce.run_plain, x, mode=mode, k=5)
+    for dyn in (False, True):
+        _same_as_plain(try_loopcost.run, try_loopcost.run_plain, x,
+                       n_loops=7, dyn=dyn)
+    for mode in try_loopcost2.MODES:
+        for carries in try_loopcost2.CARRIES:
+            _same_as_plain(try_loopcost2.run, try_loopcost2.run_plain,
+                           small, mode=mode, n_loops=3, n_carries=carries)
+    x64 = _probe_tiles(rng_np, cuda_dev, 64)
+    for mode in try_batchmin.MODES:
+        _same_as_plain(try_batchmin.run, try_batchmin.run_plain, x64,
+                       mode=mode, reps=4)
+
+
+@pytest.mark.cuda
+def test_probe_gather_kernels_match_plain(rng_np, cuda_dev):
+    """csrc/probe_gather.cu (P4, P6-P9, P12) against the plain versions;
+    P12 at every (d, off) of repro_roll24.py and a few offsets beyond."""
+    from beats3d_tpu_torch.probes import (prim_bench, repro_roll24,
+                                          try_axis0, try_vgather)
+    x64 = _probe_tiles(rng_np, cuda_dev, 64)
+    i64 = _probe_tiles(rng_np, cuda_dev, 64, -20, 20)
+    for mode in try_axis0.MODES:
+        _same_as_plain(try_axis0.run, try_axis0.run_plain, x64, i64,
+                       mode=mode, reps=3)
+    x = torch.as_tensor(rng_np.integers(0, 1000, (8, 128)).astype(np.int32)).to(cuda_dev)
+    i8 = torch.as_tensor(rng_np.integers(0, 8, (8, 128)).astype(np.int32)).to(cuda_dev)
+    for kernel in try_vgather.MODES:
+        for reps in (1, 64):
+            _same_as_plain(try_vgather.run, try_vgather.run_plain, kernel, x,
+                           i8, reps)
+    _same_as_plain(try_vgather.k_vgather, try_vgather.k_vgather_plain, x, i8)
+    x16 = torch.as_tensor(rng_np.integers(0, 1000, (16, 128)).astype(np.int32)).to(cuda_dev)
+    i16 = torch.as_tensor(rng_np.integers(-4, 16, (8, 128)).astype(np.int32)).to(cuda_dev)
+    _same_as_plain(try_vgather.k_vgather16, try_vgather.k_vgather16_plain,
+                   x16, i16)
+    xp = _probe_tiles(rng_np, cuda_dev, 9, 0, 100)
+    ip = _probe_tiles(rng_np, cuda_dev, 9, 0, 128)
+    plane = torch.as_tensor(rng_np.integers(0, 60000, (4, 80, 128)).astype(
+        np.int32)).to(cuda_dev)
+    for op in prim_bench.OPS:
+        for k in (0, 1, 4):
+            _same_as_plain(prim_bench.run, prim_bench.run_plain, xp, ip, plane,
+                           op=op, k=k)
+    with pytest.raises(ValueError, match=r"prim_bench\.py:132"):
+        prim_bench.run(xp, ip, plane, op="mm_f32", k=2)
+    rows = torch.arange(24, dtype=torch.int32, device=cuda_dev)[:, None]
+    x24 = (rows * torch.ones((1, 128), dtype=torch.int32, device=cuda_dev)).contiguous()
+    for d in repro_roll24.DS:
+        for off in list(range(8)) + [-3, 29]:
+            o = torch.full((1, 1), off, dtype=torch.int32, device=cuda_dev)
+            got = _same_as_plain(repro_roll24.run, repro_roll24.run_plain,
+                                 x24, o, d=d)
+            assert got[:, 0].tolist() == [(i + off + d) % 24 for i in range(8)]
+
+
+@pytest.mark.cuda
+def test_probe_tile_list_kernel_matches_plain(rng_np, cuda_dev):
+    """csrc/probe_tile_list.cu (P5): tile ids not contiguous, n_active read
+    on the card only, the input left unchanged."""
+    from beats3d_tpu_torch.probes import try_dyngrid
+    x = _probe_tiles(rng_np, cuda_dev, 40)
+    x0 = x.clone()
+    tl = torch.zeros(40, dtype=torch.int32, device=cuda_dev)
+    tl[:6] = torch.tensor([31, 2, 17, 39, 8, 0], dtype=torch.int32)
+    for n in (0, 1, 4, 6, 40):
+        na = torch.tensor(n, dtype=torch.int32, device=cuda_dev)
+        got = _same_as_plain(try_dyngrid.run, try_dyngrid.run_plain, x, tl, na,
+                             max_tiles=40)
+        assert torch.equal(x, x0)
+        changed = (got != x).flatten(1).any(dim=1).nonzero().flatten()
+        listed = sorted(tl[:n].tolist()) if n < 40 else sorted(set(tl.tolist()))
+        assert changed.tolist() == listed
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_bad_input(cuda_dev):
+    from beats3d_tpu_torch.probes import try_axis0, try_opcost, try_reduce
+    x = torch.zeros((2, 8, 128), dtype=torch.int32, device=cuda_dev)
+    with pytest.raises(ValueError):
+        try_reduce.run(x.to(torch.int64), mode="serial_reduce", k=1)
+    with pytest.raises(ValueError):
+        try_reduce.run(x, mode="no_such_mode", k=1)
+    with pytest.raises(ValueError):
+        try_opcost.run(x, x.cpu(), op="gather", k=1)
+    with pytest.raises(ValueError):
+        try_axis0.run(x, x, mode="axis0", reps=1)      # the grid is 64 tiles

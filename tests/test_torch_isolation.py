@@ -36,7 +36,8 @@ def test_import_loads_no_jax():
         "import beats3d_tpu_torch, beats3d_tpu_torch.runtime.app, "
         "beats3d_tpu_torch.runtime.camera, beats3d_tpu_torch.data.synth, "
         "beats3d_tpu_torch.train, beats3d_tpu_torch.data.dataset, "
-        "beats3d_tpu_torch.data.blocks, beats3d_tpu_torch.data.device_codec\n"
+        "beats3d_tpu_torch.data.blocks, beats3d_tpu_torch.data.device_codec, "
+        "beats3d_tpu_torch.probes, beats3d_tpu_torch.probes.__main__\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
         "apps.run_live_torch\n"
         "import chip_smoke\n"
