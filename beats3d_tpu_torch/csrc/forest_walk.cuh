@@ -1,8 +1,8 @@
-// Per-pixel depth feature and tree walk over the dense reference forest
-// layout, shared by the forest kernels (the layered and single-forest
-// kernels in forest_eval.cu) and the training split-bit kernel
+// Per-pixel depth feature, shared by the forest kernels (the layered and
+// single-forest kernels in forest_eval.cu) and the training split-bit kernel
 // (train_features.cu), so train-time and eval-time features stay
-// bit-identical.
+// bit-identical; and the single-forest kernel's tree walk over the dense
+// reference forest layout.
 //
 // Forest layout: float32 (T, 2^D - 1, 7 + 2C), node g of level j at row
 // (1 << j) - 1 + g, fields (ux, uy, vx, vy, thresh, l_next, r_next,
@@ -81,16 +81,6 @@ __device__ __forceinline__ const float* walk_tree_level(
   }
   *stop_level = levels;
   return nullptr;
-}
-
-// walk_tree_level without the level.
-__device__ __forceinline__ const float* walk_tree(
-    const float* __restrict__ tree, int levels, int num_classes,
-    const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
-    float scale) {
-  int stop_level;
-  return walk_tree_level(tree, levels, num_classes, img, h, w, y, x, d, scale,
-                         &stop_level);
 }
 
 }  // namespace b3d

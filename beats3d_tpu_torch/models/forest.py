@@ -12,9 +12,11 @@ within-level: the children of node ``g`` at level ``j`` are ``2g`` and
 ``2g + 1`` at level ``j + 1``, and node ``g`` of level ``j`` is row
 ``2**j - 1 + g``.
 
-The CUDA kernel walks this dense layout directly.  The plain evaluator
-(:mod:`..ops.forest_eval`) advances every pixel one level per step and reads
-per-level tables (:class:`PackedForest`).
+The single-forest and training kernels walk this dense layout directly.
+The layered kernel reads it repacked once at model load
+(:func:`kernel_tables`): 32-byte node headers and a separate leaf-pdf table.
+The plain evaluator (:mod:`..ops.forest_eval`) advances every pixel one
+level per step and reads per-level tables (:class:`PackedForest`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+HEADER_ELS = 8       # (ux, uy, vx, vy, thresh, l_next, r_next, 0): 32 bytes
 
 
 def forest_config(max_depth: int, num_classes: int):
@@ -41,6 +45,21 @@ def forest_dims(shape):
     if total != 2 ** max_depth - 1 or (els - 7) % 2 or els < 9:
         raise ValueError(f"not a packed forest shape: {tuple(shape)}")
     return num_trees, max_depth, (els - 7) // 2
+
+
+def kernel_tables(flat: torch.Tensor):
+    """The layered kernel's repacking of a dense (T, 2**D - 1, 7 + 2C)
+    float32 forest, on its device: ``header`` (T, 2**D - 1, 8) float32, each
+    node's (ux, uy, vx, vy, thresh, l_next, r_next, 0) as 32 aligned bytes
+    (two 16-byte loads), and ``pdf`` (T, 2**D - 1, 2, C) float32, the
+    (left, right) leaf pdfs, read only at a leaf.  The values are copied
+    unchanged (flags are floored in the kernel, as in the dense walk)."""
+    t, d, c = forest_dims(flat.shape)
+    header = torch.zeros((t, 2 ** d - 1, HEADER_ELS), dtype=torch.float32,
+                         device=flat.device)
+    header[..., :7] = flat[..., :7]
+    pdf = flat[..., 7:].reshape(t, 2 ** d - 1, 2, c).contiguous()
+    return header, pdf
 
 
 @dataclasses.dataclass

@@ -28,15 +28,17 @@ import numpy as np
 import torch
 
 from ..ops import forest_eval_cuda
-from .forest import DecisionForest, PackedForest
+from .forest import DecisionForest, PackedForest, kernel_tables
 
 
 @dataclasses.dataclass
 class LayerSpec:
-    flat: torch.Tensor          # (T, 2**D - 1, 7 + 2C) float32, the kernel's
+    flat: torch.Tensor          # (T, 2**D - 1, 7 + 2C) float32, dense
     forest: PackedForest        # per-level tables, the plain evaluator's
     filter_model: Optional[int]
     filter_model_class: Optional[int]
+    header: torch.Tensor        # (T, 2**D - 1, 8) float32 node headers and
+    pdf: torch.Tensor           # (T, 2**D - 1, 2, C) leaf pdfs: the kernel's
 
 
 @dataclasses.dataclass
@@ -52,6 +54,9 @@ class LayeredDecisionForest:
     num_layered_classes: int
     device: torch.device
     labels_reduce: int = 1
+    # the kernel's layer descriptors, built at the first CUDA evaluation
+    kernel_descs: object = dataclasses.field(default=None, repr=False,
+                                             compare=False)
 
     @staticmethod
     def load(config_path: str, labels_reduce: int = 1,
@@ -91,6 +96,7 @@ class LayeredDecisionForest:
                 t, PackedForest.from_flat(t),
                 None if fm is None else int(fm),
                 None if fc is None else int(fc),
+                *kernel_tables(t),
             ))
         conditions = np.asarray(conditions, dtype=np.int32)
         num_layered_classes = int(
@@ -128,8 +134,13 @@ class LayeredDecisionForest:
 def run_layered(depth, model: LayeredDecisionForest, *, labels_reduce: int,
                 scale_factor: float = 1.0):
     """The layered forward pass: the CUDA kernel for CUDA tensors, the plain
-    evaluator for CPU tensors (see forest_eval_cuda.evaluate_layered_cuda)."""
+    evaluator for CPU tensors (see forest_eval_cuda.evaluate_layered_cuda).
+    The kernel's layer descriptors are built once per model."""
+    if depth.device.type == "cuda" and model.kernel_descs is None:
+        model.kernel_descs = forest_eval_cuda.layer_descs(model.layers,
+                                                          depth.device)
     return forest_eval_cuda.evaluate_layered_cuda(
         depth, model.layers, model.conditions,
         labels_reduce=labels_reduce, scale_factor=scale_factor,
+        descs=model.kernel_descs,
     )

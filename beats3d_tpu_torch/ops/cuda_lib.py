@@ -22,6 +22,7 @@ import dataclasses
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,7 +44,8 @@ class LayerDesc(ctypes.Structure):
     """Mirror of ``B3dLayerDesc`` in csrc/forest_eval.cu."""
 
     _fields_ = [
-        ("forest", ctypes.c_void_p),
+        ("header", ctypes.c_void_p),
+        ("pdf", ctypes.c_void_p),
         ("trees", ctypes.c_int),
         ("levels", ctypes.c_int),
         ("classes", ctypes.c_int),
@@ -56,7 +58,8 @@ class LayerDesc(ctypes.Structure):
 class Build:
     path: str
     seconds: float      # nvcc wall time; 0.0 when an existing build was reused
-    log: str            # nvcc / ptxas output (registers, shared memory, spills)
+    log: str            # nvcc / ptxas output (registers, shared memory,
+                        # spills), kept beside the library
 
 
 def _sources():
@@ -100,7 +103,11 @@ def _compile() -> Build:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     path = os.path.join(BUILD_DIR, f"libbeats3d_kernels_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
-        return Build(path, 0.0, "")
+        log = ""
+        if os.path.exists(path + ".log"):
+            with open(path + ".log") as f:
+                log = f.read()
+        return Build(path, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     nvcc = _nvcc()
@@ -127,6 +134,9 @@ def _compile() -> Build:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
     seconds = time.perf_counter() - t0
+    with open(f"{path}.{os.getpid()}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{path}.{os.getpid()}.log", path + ".log")
     os.replace(tmp, path)
     return Build(path, seconds, log)
 
@@ -134,7 +144,7 @@ def _compile() -> Build:
 def _bind(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.b3d_evaluate_layered.argtypes = [
-        vp, vp, i, i, i, i, f, ctypes.POINTER(LayerDesc), i, vp, i, vp,
+        vp, vp, i, i, i, i, f, ctypes.POINTER(LayerDesc), i, vp, i, i, vp,
     ]
     lib.b3d_evaluate_layered.restype = i
     lib.b3d_plane_band_gauss.argtypes = [
@@ -161,6 +171,38 @@ def _bind(lib):
     lib.b3d_error_string.argtypes = [i]
     lib.b3d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_summary(log: str):
+    """Per kernel, from nvcc's ``-Xptxas -v`` log: registers, shared memory
+    (static bytes), stack frame and spill bytes.  Names are demangled with
+    ``c++filt`` where the host has it."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1))
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = n.replace("(anonymous namespace)::", "")
+                r["kernel"] = re.sub(r"^void |\(.*", "", n)
+    return rows
 
 
 LIBRARY = _Library()

@@ -8,7 +8,7 @@ the JAX evaluator's execution model so the two agree bit for bit:
 * traversal is level-synchronous: every (pixel, tree) lane advances one
   level per step through the per-level tables of ``PackedForest``;
 * leaf pdfs are summed level by level, the trees of one level in tree order
-  (the kernel sums in tree order; an argmax near-tie may differ);
+  (the kernels sum in the same order);
 * depth 0 and 65535 are "missing"; a probe out of bounds reads 65535; a
   centre depth of 0 makes the feature 0; probe offsets are
   ``floor(scale * u / d)`` with IEEE float32 division;
@@ -68,10 +68,15 @@ def depth_difference_feature(depth, yd, xd, d_center, u, v,
 
 def forest_pdf_sum(depth, tables: Tuple, *, labels_reduce: int = 1,
                    filter_images=None, filter_class: int = -1,
-                   scale_factor: float = 1.0):
+                   scale_factor: float = 1.0, visits=None):
     """Walk all trees level by level; return the per-pixel summed leaf pdf,
     the eligibility mask and the all-trees-terminated mask:
-    ((N, Hl, Wl, C) float32, (N, Hl, Wl) bool, (N, Hl, Wl) bool)."""
+    ((N, Hl, Wl, C) float32, (N, Hl, Wl) bool, (N, Hl, Wl) bool).
+
+    ``visits``: a list that receives, per level, the dense-layout rows
+    (tree * (2**D - 1) + node row) that eligible pixels read and the leaf
+    sides (2 * row + side) at which they stop: what a kernel must read for
+    these inputs."""
     depth = depth.to(torch.int32)
     n, h, w = depth.shape
     r = labels_reduce
@@ -94,6 +99,7 @@ def forest_pdf_sum(depth, tables: Tuple, *, labels_reduce: int = 1,
                           device=dev)
     d_center_t = d_center[..., None]
     tree_base = torch.arange(num_trees, dtype=torch.int64, device=dev)
+    nodes = 2 ** len(tables) - 1
 
     for j, (uv, thresh, lr_next, pdf) in enumerate(tables):
         g_level = 1 << j
@@ -114,6 +120,10 @@ def forest_pdf_sum(depth, tables: Tuple, *, labels_reduce: int = 1,
         for t in range(1, num_trees):
             level_sum = level_sum + contrib[..., t, :]
         pdf_sum = pdf_sum + level_sum
+        if visits is not None:
+            live = (~done) & eligible[..., None]
+            row = tree_base * nodes + (g_level - 1) + g
+            visits.append((row[live], (2 * row + side)[hit_leaf & live]))
         g = torch.where((~done) & descend, 2 * g + side, g)
         done = done | hit_leaf
 
@@ -185,6 +195,29 @@ def composite_labels(label_images, conditions):
         offset = torch.where(active & (flag == 1), val, offset)
         done = done | invalid | emit
     return out.to(label_images.dtype)
+
+
+def layered_visits(depth, layer_tables: Tuple, *, filter_specs: Tuple,
+                   labels_reduce: int, scale_factor: float = 1.0):
+    """What a layered evaluation must read on these inputs, per layer: a
+    dict of ``rows`` (distinct node rows read), ``leaves`` (distinct leaf
+    sides reached), ``steps`` (pixel-tree-level steps) and ``leaf_hits``.
+    Counts the bound of a kernel, from the plain walk."""
+    label_images, out = [], []
+    for tables, (fm, fc) in zip(layer_tables, filter_specs):
+        kw = dict(labels_reduce=labels_reduce, scale_factor=scale_factor)
+        if fm is not None:
+            kw.update(filter_images=label_images[fm], filter_class=int(fc))
+        visits = []
+        pdf_sum, eligible, all_done = forest_pdf_sum(depth, tables,
+                                                     visits=visits, **kw)
+        label_images.append(labels_from_pdf(pdf_sum, eligible, all_done))
+        rows = torch.cat([r for r, _ in visits])
+        leaves = torch.cat([l for _, l in visits])
+        out.append(dict(rows=int(torch.unique(rows).numel()),
+                        leaves=int(torch.unique(leaves).numel()),
+                        steps=int(rows.numel()), leaf_hits=int(leaves.numel())))
+    return out
 
 
 def run_layered(depth, layer_tables: Tuple, conditions, *,

@@ -27,10 +27,11 @@ MAX_TREES = 16
 
 def kernel_supports(layers, conditions) -> bool:
     """Whether the kernel takes this model: at most 4 layers of at most 16
-    classes each, and a conditions table of at most 128 rows."""
+    trees and 16 classes each, and a conditions table of at most 128 rows."""
     return (
         1 <= len(layers) <= MAX_LAYERS
-        and all(1 <= l.forest.num_classes <= MAX_CLASSES for l in layers)
+        and all(1 <= l.forest.num_classes <= MAX_CLASSES
+                and 1 <= l.forest.num_trees <= MAX_TREES for l in layers)
         and 1 <= conditions.shape[0] <= MAX_CONDITIONS
     )
 
@@ -46,16 +47,46 @@ def evaluate_layered_plain(depth, layers, conditions, *, labels_reduce: int,
     )
 
 
+def layer_descs(layers, device):
+    """The kernel's layer descriptors (ctypes array of ``LayerDesc``) for
+    ``layers``, whose repacked tables must lie on ``device``.  Build it once
+    per model (``models.layered.run_layered`` keeps it on the model)."""
+    descs = (cuda_lib.LayerDesc * len(layers))()
+    for i, l in enumerate(layers):
+        for name, t in (("header", l.header), ("pdf", l.pdf)):
+            if (t.device != device or t.dtype != torch.float32
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"evaluate_layered_cuda: layer {i}'s {name} table must be "
+                    f"a contiguous float32 tensor on {device}")
+        fm = -1 if l.filter_model is None else int(l.filter_model)
+        if fm >= i:
+            raise ValueError(
+                f"evaluate_layered_cuda: layer {i} filters on layer {fm}")
+        descs[i] = cuda_lib.LayerDesc(
+            l.header.data_ptr(), l.pdf.data_ptr(), l.forest.num_trees,
+            l.forest.max_depth, l.forest.num_classes, fm,
+            0 if l.filter_model_class is None else int(l.filter_model_class),
+        )
+    descs.device = device
+    return descs
+
+
 def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
-                          scale_factor: float = 1.0):
+                          scale_factor: float = 1.0, descs=None,
+                          lanes: int = 0):
     """All layers + the composite over the stride-r label grid.
 
     depth: (N, H, W); layers: sequence of ``models.layered.LayerSpec``
-    (dense ``flat`` forest, per-level ``forest`` tables, filter);
-    conditions: (K, 2) int32.  Returns (N, H//r, W//r) composite labels,
-    65535 = unlabelled.  On CUDA: depth must be contiguous int32, the
-    forests and conditions contiguous on the same card; returns int32.  On
-    the CPU: the plain version, in the depth's dtype.
+    (repacked ``header``/``pdf`` tables for the kernel, per-level
+    ``forest`` tables for the plain version, filter); conditions: (K, 2)
+    int32.  Returns (N, H//r, W//r) composite labels, 65535 = unlabelled.
+    On CUDA: depth must be contiguous int32, the tables and conditions on
+    the same card; returns int32.  ``descs``: ``layer_descs(layers)``, built
+    here when not given.  ``lanes``: lanes per pixel, 0 to let the kernel
+    choose from the model and the input size (as the pipeline does); the
+    others (1, 2, 4, 8, 16) serve the card tests and kernel_bench's sweep.
+    On the CPU: the plain version, in the depth's dtype.
     """
     if depth.device.type != "cuda":
         return evaluate_layered_plain(
@@ -67,29 +98,21 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
             f"got {depth.dtype} {tuple(depth.shape)}")
     if not kernel_supports(layers, conditions):
         raise ValueError(
-            f"evaluate_layered_cuda: the kernel takes <= {MAX_LAYERS} layers, "
-            f"<= {MAX_CLASSES} classes and <= {MAX_CONDITIONS} conditions")
+            f"evaluate_layered_cuda: the kernel takes <= {MAX_LAYERS} layers "
+            f"of <= {MAX_TREES} trees and <= {MAX_CLASSES} classes, and <= "
+            f"{MAX_CONDITIONS} conditions")
     if (conditions.device != depth.device or conditions.dtype != torch.int32
             or not conditions.is_contiguous()):
         raise ValueError(
             "evaluate_layered_cuda: conditions must be contiguous int32 on "
             "the depth's device")
-    descs = (cuda_lib.LayerDesc * len(layers))()
-    for i, l in enumerate(layers):
-        if (l.flat.device != depth.device or l.flat.dtype != torch.float32
-                or not l.flat.is_contiguous()):
-            raise ValueError(
-                f"evaluate_layered_cuda: layer {i}'s forest must be a "
-                f"contiguous float32 tensor on the depth's device")
-        fm = -1 if l.filter_model is None else int(l.filter_model)
-        if fm >= i:
-            raise ValueError(
-                f"evaluate_layered_cuda: layer {i} filters on layer {fm}")
-        descs[i] = cuda_lib.LayerDesc(
-            l.flat.data_ptr(), l.forest.num_trees, l.forest.max_depth,
-            l.forest.num_classes, fm,
-            0 if l.filter_model_class is None else int(l.filter_model_class),
-        )
+    if descs is None:
+        descs = layer_descs(layers, depth.device)
+    elif descs.device != depth.device or len(descs) != len(layers):
+        raise ValueError("evaluate_layered_cuda: descs were built for other "
+                         "layers or another device")
+    if lanes not in (0, 1, 2, 4, 8, 16):
+        raise ValueError(f"evaluate_layered_cuda: lanes {lanes}")
     n, h, w = depth.shape
     r = int(labels_reduce)
     out = torch.empty((n, h // r, w // r), dtype=torch.int32,
@@ -100,7 +123,7 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
         status = lib.b3d_evaluate_layered(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
             descs, len(layers), conditions.data_ptr(), conditions.shape[0],
-            stream,
+            int(lanes), stream,
         )
     cuda_lib.check(status, "evaluate_layered_cuda")
     evaluate_layered_cuda.launches += 1

@@ -10,6 +10,7 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +26,18 @@ def plane_band_gauss_plain(depth, mat, pp, focal, threshold, *,
     d1 = points.plane_band_depth(depth, mat, pp, focal, threshold)
     return points.gaussian_depth_filter(
         d1, points.gaussian_kernel(ksize, sigma))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_taps(ksize: int = KSIZE, sigma: float = 2.0):
+    """The kernel's taps argument, built once per process: the k*k weights
+    of ``points.gaussian_kernel`` in row-major order, then their row-major
+    float32 sum (the ``wn`` of a pixel whose taps are all kept)."""
+    taps = points.gaussian_kernel(ksize, sigma).reshape(-1)
+    wn_all = np.float32(0.0)
+    for t in taps:
+        wn_all = np.float32(wn_all + t)
+    return (ctypes.c_float * (taps.size + 1))(*taps.tolist(), float(wn_all))
 
 
 def plane_band_gauss_cuda(depth, mat, pp, focal, threshold, *,
@@ -55,8 +68,6 @@ def plane_band_gauss_cuda(depth, mat, pp, focal, threshold, *,
     d3 = depth if depth.dim() == 3 else depth[None]
     b, h, w = d3.shape
     out = torch.empty_like(d3)
-    taps = points.gaussian_kernel(ksize, sigma).reshape(-1)
-    taps_c = (ctypes.c_float * taps.size)(*taps.tolist())
     lib = cuda_lib.library()
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -64,7 +75,7 @@ def plane_band_gauss_cuda(depth, mat, pp, focal, threshold, *,
             d3.data_ptr(), out.data_ptr(), b, h, w, mat.data_ptr(),
             float(np.float32(pp[0])), float(np.float32(pp[1])),
             float(np.float32(focal)), float(np.float32(threshold)),
-            taps_c, stream,
+            kernel_taps(ksize, float(sigma)), stream,
         )
     cuda_lib.check(status, "plane_band_gauss")
     plane_band_gauss_cuda.launches += 1

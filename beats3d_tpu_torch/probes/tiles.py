@@ -1,6 +1,6 @@
 """The shared layer of the probe ports: the (NT, 8, 128) int32 tile, the
-scripts' inputs, the launch of a probe kernel, CUDA-event timing and the
-scripts' differencing.
+scripts' inputs, the launch of a probe kernel, the tables (timed from a
+CUDA graph, ``utils.profiler.graph_ms``) and the scripts' differencing.
 
 A TPU vreg is 8 sublanes x 128 lanes; the scripts/ probes work on int32
 tiles of that shape, NT of them along the grid.  A probe's time per unit
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_lib
+from ..utils.profiler import graph_ms
 
 SUB, LANE = 8, 128
 
@@ -144,29 +145,6 @@ def tile_max(t):
     return t.amax(dim=(-2, -1), keepdim=True)
 
 
-def cuda_ms(fn, iters=20, warmup=2):
-    """Mean device time of fn() per call.  The calls are captured in one
-    CUDA graph and replayed between two CUDA events: a probe kernel runs
-    for less time than the host takes to launch it, so timing launches
-    from the host would time the host."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def table(probe, device, plain=False, iters=20):
     """The rows of ``probe``'s table, timed on the card: one dict per case
     with the mode, the counts, the ms at each and the ns per unit per tile.
@@ -181,8 +159,8 @@ def table(probe, device, plain=False, iters=20):
                 rows.append(dict(mode=case.mode, error=str(e)))
                 continue
             raise AssertionError(f"{probe.SCRIPT} {case.mode} did not raise")
-        ms = [cuda_ms(lambda: probe.call(args, case, k, plain),
-                      iters=iters, warmup=1 if plain else 2)
+        ms = [graph_ms(lambda: probe.call(args, case, k, plain),
+                       iters=iters, warmup=1 if plain else 2)
               for k in case.ks]
         rows.append(dict(mode=case.mode, ks=list(case.ks), ms=ms,
                          ns=ns_per_unit(case, ms)))

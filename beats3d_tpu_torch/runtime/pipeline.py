@@ -443,7 +443,7 @@ class FramePipeline:
                 model.layers, model.conditions):
             raise ValueError(
                 "the layered-eval kernel does not take this model (> 4 "
-                "layers, > 16 classes or > 128 conditions)")
+                "layers, > 16 trees or classes, or > 128 conditions)")
         if mean_shift_variances is None:
             # 3d_bz.py:108-110 — class 1 (hand) wide, fingertips tight.
             mean_shift_variances = np.array(

@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ and holds each against its plain
-PyTorch version at its path's shapes.  Then drives the port's paths:
+PyTorch version at its path's shapes: K2 bit for bit at B = 1 and 16, K1
+with 0 label mismatches against plain and the flagship golden on the
+golden frames and the pipeline's live (2) and batched (32) hand crops.
+Then drives the port's paths:
 
 * the live instrument (BeatsApp on the committed flagship model, 848x480
-  synthetic frames, RANSAC plane, ~60 frames) and one batched call, through
-  K1 (layered forest) and K2 (plane band + gaussian), compared with the
-  port's plain path on the CPU;
+  synthetic frames, RANSAC plane, ~60 frames) and five batched calls,
+  through K1 (layered forest) and K2 (plane band + gaussian), then 32 live
+  frames and 5 batched calls under torch.profiler for K1's and K2's device
+  time in place; the port's plain path on the CPU on the same frames;
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
   (training split bits) and B1 (single-forest evaluation), plus a reduced
@@ -21,6 +25,13 @@ PyTorch version at its path's shapes.  Then drives the port's paths:
 
 Each path checks that its kernels ran on it and that the outputs are right.
 Any failure raises (exit code != 0).
+
+Kernel times (``ms``) are device times from a CUDA graph replay
+(``utils.profiler.graph_ms``); the plain versions are launched from the
+host (``host_ms``).  ``bound_ms`` is the larger of the bytes the call must
+move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
+from this run's inputs (``kernel_bench``: the node rows the plain walk
+visits for K1 and B1, the active pixels for B4).
 
 Output: one JSON line per phase; then the phases' wall times, a JSON line of
 per-kernel results, the card's `name, power.limit` line, and last the device
@@ -44,14 +55,14 @@ from beats3d_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
 from beats3d_tpu_torch.data.synth import (  # noqa: E402
     articulated_scene, part_labels,
 )
+from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
 from beats3d_tpu_torch.models.forest import PackedForest  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
-    cuda_lib, forest_eval, forest_eval_cuda, points, preproc_cuda,
-    train_features, train_features_cuda,
+    cuda_lib, forest_eval, forest_eval_cuda, preproc_cuda, train_features,
+    train_features_cuda,
 )
-from beats3d_tpu_torch.ops import plane as plane_ops  # noqa: E402
 from beats3d_tpu_torch.probes import __main__ as probes_main  # noqa: E402
 from beats3d_tpu_torch.probes import tiles as probe_tiles  # noqa: E402
 from beats3d_tpu_torch.runtime import pipeline as pl  # noqa: E402
@@ -59,71 +70,51 @@ from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp  # noqa: E402
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
 from beats3d_tpu_torch.train import make_random_features, train_forest  # noqa: E402
-from beats3d_tpu_torch.utils import CameraIntrinsics  # noqa: E402
+from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
 
-FLAGSHIP = os.path.join(HERE, "models", "flagship")
+FLAGSHIP = kb.FLAGSHIP
 K1 = forest_eval_cuda.evaluate_layered_cuda
 K2 = preproc_cuda.plane_band_gauss_cuda
 B1 = forest_eval_cuda.evaluate_forest_cuda
 B4 = train_features_cuda.train_feature_bits_cuda
 APP_FRAMES = 60
-BATCH = 16
+PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
+BATCH = kb.BATCH
 CLASSES = 7          # background, palm, five fingers
 TRAIN_FRAMES, TEST_FRAMES = 16, 4
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
-# source, the pallas_call it replaces)
+# source, the pallas_call it replaces, operations per element of x per count
+# step of that case: the bound's operation count)
 PROBE_KERNELS = (
     ("P1", probes.try_reduce, "run", "serial_reduce", "probe_tile.cu",
-     "scripts/try_reduce.py:47"),
+     "scripts/try_reduce.py:47", 2),        # a tile reduce + an add
     ("P2", probes.try_loopcost, "run", "dyn=True", "probe_tile.cu",
-     "scripts/try_loopcost.py:30"),
+     "scripts/try_loopcost.py:30", 1),      # one add per loop
     ("P3", probes.try_loopcost2, "run", "flat carries=8", "probe_tile.cu",
-     "scripts/try_loopcost2.py:46"),
+     "scripts/try_loopcost2.py:46", 8),     # one add per carry per loop
     ("P4", probes.try_axis0, "run", "axis0", "probe_gather.cu",
-     "scripts/try_axis0.py:40"),
+     "scripts/try_axis0.py:40", 2),         # a sublane gather + an add
     ("P5", probes.try_dyngrid, "run", "tile_list", "probe_tile_list.cu",
-     "scripts/try_dyngrid.py:29"),
+     "scripts/try_dyngrid.py:29", 2),       # x * 2 + 1 on a listed tile
     ("P6", probes.try_vgather, "run", "v8", "probe_gather.cu",
-     "scripts/try_vgather.py:62"),
+     "scripts/try_vgather.py:62", 2),       # a gather + an add per rep
     ("P7", probes.try_vgather, "k_vgather", "k_vgather", "probe_gather.cu",
-     "scripts/try_vgather.py:82"),
+     "scripts/try_vgather.py:82", 1),
     ("P8", probes.try_vgather, "k_vgather16", "k_vgather16", "probe_gather.cu",
-     "scripts/try_vgather.py:90"),
+     "scripts/try_vgather.py:90", 2),       # two gathers + a select
     ("P9", probes.prim_bench, "run", "serve_trip_4", "probe_gather.cu",
-     "scripts/prim_bench.py:166"),
+     "scripts/prim_bench.py:166", 96),      # 8 probes x 4 cells x 3 per trip
     ("P10", probes.try_batchmin, "run", "batched", "probe_tile.cu",
-     "scripts/try_batchmin.py:58"),
+     "scripts/try_batchmin.py:58", 2),      # a tile min + an add per rep
     ("P11", probes.try_opcost, "run", "gather", "probe_tile.cu",
-     "scripts/try_opcost.py:58"),
+     "scripts/try_opcost.py:58", 2),        # an and + a lane gather
     ("P12", probes.repro_roll24, "run", "d=3", "probe_gather.cu",
-     "scripts/repro_roll24.py:45"),
+     "scripts/repro_roll24.py:45", 1),
 )
 
 
 def say(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() per call, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def load_flagship(device):
-    """The committed trained flagship (coarse D=8 T=4 -> fine D=16 T=4)."""
-    return LayeredDecisionForest.load(
-        os.path.join(FLAGSHIP, "model_cfg.json"), labels_reduce=2,
-        device=device)
 
 
 def phase_device():
@@ -145,48 +136,38 @@ def phase_build():
     t0 = time.perf_counter()
     cuda_lib.library()
     build = cuda_lib.LIBRARY.build
-    ptxas = [l.strip() for l in build.log.splitlines()
-             if "registers" in l or "spill" in l]
     say("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(build.seconds, 3),
-        library=os.path.relpath(build.path, HERE), ptxas=ptxas)
+        library=os.path.relpath(build.path, HERE),
+        ptxas=cuda_lib.ptxas_summary(build.log))
 
 
 def compare_preproc(raw, plane, intrin):
-    got = K2(raw, plane, intrin.pp, intrin.fx, 40.0)
+    got = K2(raw, plane, intrin.pp, intrin.fx, kb.THRESHOLD)
     want = preproc_cuda.plane_band_gauss_plain(raw, plane, intrin.pp,
-                                               intrin.fx, 40.0)
+                                               intrin.fx, kb.THRESHOLD)
     torch.cuda.synchronize()
-    diff = (got - want).abs()
-    mask_mism = int(((got == 0) != (want == 0)).sum())
-    max_err = int(diff.max())
-    if mask_mism != 0 or max_err > 1:
-        raise AssertionError(
-            f"K2 vs plain: {mask_mism} missing-mask mismatches, max |d| {max_err}")
-    return max_err, int((diff != 0).sum()), got
+    max_err = int((got - want).abs().max())
+    if max_err != 0:
+        raise AssertionError(f"K2 vs plain: max |d| {max_err}, want 0")
+    return max_err
 
 
-def phase_preproc(intrin, dev):
-    scenes = np.stack([
-        articulated_scene(intrin, np.random.default_rng(1000 + t),
-                          two_hands=True, flex_scale=0.3)[0]
-        for t in range(BATCH)
-    ])
-    frames = torch.as_tensor(scenes).to(dev).to(torch.int32)
-    pts = points.deproject_points(frames[0], intrin.pp, intrin.fx)
-    calib = plane_ops.CalibratedPlane(25000, 40.0, seed=0, device=dev)
-    plane = calib.make(pts).contiguous()
+def phase_preproc(inp):
+    """K2 bit for bit against plain at B = 1 and 16; device time from a CUDA
+    graph, plain time launched from the host."""
     res = {}
     for b in (1, BATCH):
-        raw = frames[:b].contiguous()
-        max_err, n_diff, _ = compare_preproc(raw, plane, intrin)
-        ms = cuda_ms(lambda: K2(raw, plane, intrin.pp, intrin.fx, 40.0))
-        plain_ms = cuda_ms(lambda: preproc_cuda.plane_band_gauss_plain(
-            raw, plane, intrin.pp, intrin.fx, 40.0), iters=5)
-        res[b] = dict(max_abs_err=max_err, pixels_off_by_one=n_diff,
-                      ms=ms, plain_ms=plain_ms)
+        raw = inp.frames[:b].contiguous()
+        args = (inp.plane, inp.intrin.pp, inp.intrin.fx, kb.THRESHOLD)
+        max_err = compare_preproc(raw, inp.plane, inp.intrin)
+        bound_ms, bound_by = kb.bound(*kb.k2_work(raw))
+        res[b] = dict(max_abs_err=max_err, ms=graph_ms(lambda: K2(raw, *args)),
+                      plain_ms=host_ms(lambda: preproc_cuda.plane_band_gauss_plain(
+                          raw, *args)),
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         say("k2_vs_plain", batch=b, shape=list(raw.shape), **res[b])
-    return scenes, frames, plane, res
+    return res
 
 
 def compare_layered(model, depth, scale=1.0):
@@ -200,56 +181,75 @@ def compare_layered(model, depth, scale=1.0):
     return got, mism, int((got - want).abs().max())
 
 
-def hand_crops(pipe, frames, plane):
-    """The pipeline's own per-hand 448x512 crops of each frame."""
-    cfg = pipe.cfg
-    h, w = frames.shape[1:]
-    depth1 = pl._band_gauss(frames, plane, pipe, cfg)
-    grown, _, _ = pl._front_rest(depth1, pipe.group_min_size, cfg)
-    origins = pl._crop_origins(grown, cfg, h, w)
-    crops = [pl._stencil_crops(depth1[i], grown[i], oys, oxs, cfg, h, w)
-             for i, (oys, oxs, too_big) in enumerate(origins) if not too_big]
-    return torch.cat(crops).contiguous()
-
-
-def phase_layered(model, pipe, frames, plane, dev):
-    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
-    gdepth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
-    want = gold["labels"][:, ::2, ::2]
-    got, mism_plain, _ = compare_layered(model, gdepth)
-    mism_gold = int((got.cpu().numpy() != want).sum())
-    say("k1_golden", shape=list(gdepth.shape), golden_mismatches=mism_gold,
-        plain_mismatches=mism_plain,
-        ms=cuda_ms(lambda: K1(gdepth, model.layers, model.conditions,
-                              labels_reduce=2)),
-        plain_ms=cuda_ms(lambda: forest_eval_cuda.evaluate_layered_plain(
-            gdepth, model.layers, model.conditions, labels_reduce=2), iters=3))
-    if mism_gold or mism_plain:
-        raise AssertionError(f"K1 on the flagship golden: {mism_gold} golden, "
-                             f"{mism_plain} plain mismatches")
-    crops = hand_crops(pipe, frames, plane)
+def phase_layered(inp):
+    """K1 against the flagship golden and against plain on the golden frames
+    and on the pipeline's live (2) and batched (32) crops; device time from
+    a CUDA graph, the bound from the node rows the plain walk visits."""
+    model = inp.model
     res = {}
-    for name, depth in (("live", crops[:2].contiguous()), ("batch", crops)):
-        _, mism, max_err = compare_layered(model, depth)
-        ms = cuda_ms(lambda: K1(depth, model.layers, model.conditions,
-                                labels_reduce=2))
-        plain_ms = cuda_ms(lambda: forest_eval_cuda.evaluate_layered_plain(
-            depth, model.layers, model.conditions, labels_reduce=2), iters=3)
-        res[name] = dict(mismatches=mism, max_abs_err=max_err, ms=ms,
-                         plain_ms=plain_ms)
+    for name, depth in kb.k1_shapes(inp).items():
+        got, mism, max_err = compare_layered(model, depth)
+        bytes_moved, ops, visits = kb.k1_work(model, depth)
+        bound_ms, bound_by = kb.bound(bytes_moved, ops)
+        res[name] = dict(
+            mismatches=mism, max_abs_err=max_err,
+            ms=graph_ms(lambda: K1(depth, model.layers, model.conditions,
+                                   labels_reduce=2)),
+            plain_ms=host_ms(lambda: forest_eval_cuda.evaluate_layered_plain(
+                depth, model.layers, model.conditions, labels_reduce=2),
+                iters=3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bytes=bytes_moved, node_rows_visited=[v["rows"] for v in visits])
+        if name == "golden":
+            res[name]["golden_mismatches"] = int(
+                (got.cpu().numpy() != inp.golden_labels).sum())
         say("k1_vs_plain", crops=name, shape=list(depth.shape), **res[name])
-        if mism:
-            raise AssertionError(f"K1 vs plain on {name} crops: {mism} mismatches")
+        if mism or res[name].get("golden_mismatches"):
+            raise AssertionError(f"K1 on {name}: {mism} plain mismatches, "
+                                 f"{res[name].get('golden_mismatches')} golden")
     return res
 
 
-def phase_main_path(model, frames, plane, intrin, smi):
-    source = SyntheticSource(intrin)
+def kernel_device_ms(prof, needle):
+    """(launches, mean device ms per launch) of the kernels whose name holds
+    ``needle`` in a torch.profiler run."""
+    n, total_us = 0, 0.0
+    for e in prof.key_averages():
+        if needle in e.key:
+            n += e.count
+            total_us += getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0))
+    return n, (total_us / n / 1e3 if n else None)
+
+
+def device_profile(prof, calls, wall_ms):
+    """Per call of a torch.profiler window: device operations (kernels,
+    copies, sets), their device ms, the profiled wall ms, the device's idle
+    share of it, and the five largest device-time names."""
+    ops = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_us = [(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)), e) for e in ops]
+    device_ms = sum(us for us, _ in dev_us) / 1e3 / calls
+    top = sorted(dev_us, key=lambda t: -t[0])[:5]
+    return dict(device_ops_per_call=sum(e.count for e in ops) / calls,
+                device_ms_per_call=device_ms, wall_ms_per_call=wall_ms,
+                idle_share=1.0 - device_ms / wall_ms,
+                top=[[e.key[:70], us / 1e3 / calls] for us, e in top])
+
+
+def phase_main_path(inp, smi):
+    """The instrument (BeatsApp.tick) and the batched call: ms per frame and
+    frames/s on the host clock, then a torch.profiler window of 32 live
+    frames and 5 batched calls for K1's and K2's device time in place."""
+    model, frames, plane = inp.model, inp.frames, inp.plane
+    source = SyntheticSource(inp.intrin)
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
                    log=lambda *a: None)
     # frames are synthesised up front so the timing holds ticks only
-    it = iter([f for f, _ in zip(source.frames(),
-                                 range(app.cfg.warmup_frames + APP_FRAMES))])
+    it = iter([f for f, _ in zip(
+        source.frames(),
+        range(app.cfg.warmup_frames + APP_FRAMES + PROFILED_FRAMES))])
     K1.launches = K2.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
@@ -269,17 +269,46 @@ def phase_main_path(model, frames, plane, intrin, smi):
 
     ob = app.pipeline.batch(frames, plane)
     torch.cuda.synchronize()
+    before = (K1.launches, K2.launches)
     t0 = time.perf_counter()
     iters = 5
     for _ in range(iters):
         ob = app.pipeline.batch(frames, plane)
     torch.cuda.synchronize()
     fps_batched = BATCH * iters / (time.perf_counter() - t0)
+    per_batch = ((K1.launches - before[0]) / iters,
+                 (K2.launches - before[1]) / iters)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    walls = {}
+    with torch.profiler.profile(activities=acts) as prof_live:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_FRAMES):
+            app.tick(next(it))
+        torch.cuda.synchronize()
+        walls["live"] = time.perf_counter() - t0
+    with torch.profiler.profile(activities=acts) as prof_batch:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_BATCHES):
+            app.pipeline.batch(frames, plane)
+        torch.cuda.synchronize()
+        walls["batched"] = time.perf_counter() - t0
     launches = (K1.launches, K2.launches)
+    in_place = {}
+    for path, prof, calls in (("live", prof_live, PROFILED_FRAMES),
+                              ("batched", prof_batch, PROFILED_BATCHES)):
+        for name, needle in (("k1", "evaluate_layered_kernel"),
+                             ("k2", "plane_band_gauss_kernel")):
+            n, ms = kernel_device_ms(prof, needle)
+            in_place[f"{name}_{path}"] = dict(launches_per_call=n / calls,
+                                              device_ms_per_launch=ms)
+        in_place[path] = device_profile(prof, calls,
+                                        walls[path] * 1e3 / calls)
 
     if min(launches_app) < processed:
         raise AssertionError(f"kernel launches {launches_app} < {processed} frames")
-    if launches[0] - launches_app[0] < 1 or launches[1] - launches_app[1] < 1:
+    if min(per_batch) < 1:
         raise AssertionError("the batched call launched no kernel")
     # Frames 8 and 13 of the bench scenes lose a hand (one under the 6 %
     # group-size threshold, one merged with its neighbour); the JAX package
@@ -300,9 +329,12 @@ def phase_main_path(model, frames, plane, intrin, smi):
         calibration_and_first_frame_s=round(t_cal, 4),
         ms_per_frame_single=ms_frame, batch=BATCH, fps_batched=fps_batched,
         k1_launches=launches[0], k2_launches=launches[1],
+        launches_per_frame=[launches_app[0] / processed,
+                            launches_app[1] / processed],
+        launches_per_batched_call=list(per_batch), profiled=in_place,
         hands_per_frame=hands.tolist(), valid_tips_batch=n_valid, valid_tips_app=app_valid,
         midi_events=len(app.midi.sink.events))
-    return app, launches
+    return launches
 
 
 def phase_card_vs_cpu(model, scenes, plane, intrin):
@@ -363,12 +395,14 @@ def phase_b4(intrin, dev):
         want = train_features.train_feature_bits_plain(d, props, act)
         torch.cuda.synchronize()
         diff = got != want
+        bound_ms, bound_by = kb.bound(*kb.b4_work(d, props, act))
         res[name] = dict(
             word_mismatches=int(diff.sum()),
             max_abs_err=int(diff.any()),     # over the unpacked 0/1 bits
-            ms=cuda_ms(lambda: B4(d, props, act)),
-            plain_ms=cuda_ms(lambda: train_features.train_feature_bits_plain(
-                d, props, act), iters=3))
+            ms=graph_ms(lambda: B4(d, props, act)),
+            plain_ms=host_ms(lambda: train_features.train_feature_bits_plain(
+                d, props, act), iters=3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         say("b4_vs_plain", pixels=name, shape=list(d.shape), proposals=64,
             active_pixels=int(active.sum()), **res[name])
         if res[name]["word_mismatches"]:
@@ -401,13 +435,15 @@ def phase_b1(model, dev):
         got = B1(depth, flat, **kw)
         want = forest_eval.evaluate_forest(depth, tables, **kw)
         torch.cuda.synchronize()
+        bound_ms, bound_by = kb.bound(*kb.forest_work(depth, flat, **kw))
         res[name] = dict(
             mismatches=int((got != want).sum()),
             max_abs_err=int((got - want).abs().max()),
             written=int((got != 65535).sum()),
-            ms=cuda_ms(lambda: B1(depth, flat, **kw)),
-            plain_ms=cuda_ms(lambda: forest_eval.evaluate_forest(
-                depth, tables, **kw), iters=2, warmup=1))
+            ms=graph_ms(lambda: B1(depth, flat, **kw)),
+            plain_ms=host_ms(lambda: forest_eval.evaluate_forest(
+                depth, tables, **kw), iters=2),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         say("b1_vs_plain", case=name, shape=list(depth.shape),
             trees=int(flat.shape[0]), **res[name])
     bad = {k: v["mismatches"] for k, v in res.items() if v["mismatches"]}
@@ -529,7 +565,7 @@ def phase_probes_vs_plain(dev, tables, launches):
     """Every mode of P1-P12 at each of its counts: kernel equal to plain on
     the card (mm_* raise on both sides); then the plain versions' tables."""
     res = {}
-    for p, mod, fn, _, _, _ in PROBE_KERNELS:
+    for p, mod, fn, *_ in PROBE_KERNELS:
         if mod.SCRIPT not in res:
             res[mod.SCRIPT] = (
                 probe_tiles.compare(mod, dev),
@@ -554,19 +590,64 @@ def phase_probes_vs_plain(dev, tables, launches):
     return res
 
 
-def probe_entries(res, launches):
+def probe_bound(dev, mod, fn, mode, ops_per_element):
+    """(bound_ms, bound_by, library_ms) of a probe's kernels-line case at
+    its larger count: every input and the output once, ops_per_element
+    operations per element of x per count step (per listed tile for P5).
+    library_ms: torch.gather, the one PyTorch call with the same function,
+    for P7 and P8 (the int64 index it needs is made outside the timing)."""
+    args = mod.inputs(dev)
+    named = args if isinstance(args, dict) else {}
+    case = next(c for c in mod.CASES if c.mode == mode)
+    k = case.ks[-1]
+    out = mod.call(args, case, k)
+    if fn == "k_vgather":
+        tensors = [named["x"], named["idx"]]
+    elif fn == "k_vgather16":
+        tensors = [named["x16"], named["idx16"]]
+    elif named:
+        tensors = [named["x"], named["idx"]]
+    else:
+        tensors = [a for a in args if torch.is_tensor(a)]
+    bytes_moved = sum(t.numel() * t.element_size() for t in tensors + [out])
+    if mod.SCRIPT == "try_dyngrid":
+        elements = 8 * 128                  # per listed tile
+    else:
+        elements = out.numel() if fn == "k_vgather16" else tensors[0].numel()
+    steps = 1 if fn in ("k_vgather", "k_vgather16") else k
+    bound_ms, bound_by = kb.bound(bytes_moved, ops_per_element * elements * steps)
+    library_ms = None
+    if fn in ("k_vgather", "k_vgather16"):
+        src, idx = tensors[0], tensors[1].long()
+        library_ms = graph_ms(lambda: torch.gather(src, 0, idx))
+    return bound_ms, bound_by, library_ms
+
+
+def probe_entries(dev, res, launches):
     out = []
-    for p, mod, fn, mode, src, replaces in PROBE_KERNELS:
+    for p, mod, fn, mode, src, replaces, ops_per_element in PROBE_KERNELS:
         checks, kern, plain = res[mod.SCRIPT]
         errs = [r["max_abs_err"] for c, r in zip(mod.CASES, checks)
                 if probe_wrapper_of(c) == fn]
+        bound_ms, bound_by, library_ms = probe_bound(dev, mod, fn, mode,
+                                                     ops_per_element)
         out.append({
             "name": f"{mod.SCRIPT}.{fn} ({mode}, k={kern[mode]['ks'][-1]})",
             "route": "cuda", "source": f"beats3d_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[p],
             "max_abs_err": max(errs), "ms": kern[mode]["ms"][-1],
-            "plain_ms": plain[mode]["ms"][-1]})
+            "plain_ms": plain[mode]["ms"][-1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
     return out
+
+
+def entry(name, source, replaces, launches, res):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": name, "route": "cuda",
+            "source": f"beats3d_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            **{k: res[k] for k in keys}}
 
 
 def main():
@@ -581,46 +662,36 @@ def main():
         return out
 
     run("build", phase_build)
-    intrin = CameraIntrinsics.d415()
-    scenes, frames, plane, k2 = run("k2_vs_plain", phase_preproc, intrin, dev)
-    model = load_flagship(dev)
-    pipe = pl.FramePipeline(model, intrin)
-    k1 = run("k1_vs_plain", phase_layered, model, pipe, frames, plane, dev)
-    _, launches = run("main_path", phase_main_path, model, frames, plane,
-                      intrin, smi)
-    run("card_vs_cpu", phase_card_vs_cpu, model, scenes, plane, intrin)
-    b4 = run("b4_vs_plain", phase_b4, intrin, dev)
-    b1 = run("b1_vs_plain", phase_b1, model, dev)
-    train_launches = run("train_path", phase_train, intrin, dev, smi)
-    run("train_card_vs_cpu", phase_train_card_vs_cpu, intrin, dev)
-    run("train_streaming", phase_train_streaming, intrin, dev)
+    inp = run("inputs", kb.bench_inputs, dev)
+    k2 = run("k2_vs_plain", phase_preproc, inp)
+    k1 = run("k1_vs_plain", phase_layered, inp)
+    launches = run("main_path", phase_main_path, inp, smi)
+    run("card_vs_cpu", phase_card_vs_cpu, inp.model, inp.scenes, inp.plane,
+        inp.intrin)
+    b4 = run("b4_vs_plain", phase_b4, inp.intrin, dev)
+    b1 = run("b1_vs_plain", phase_b1, inp.model, dev)
+    train_launches = run("train_path", phase_train, inp.intrin, dev, smi)
+    run("train_card_vs_cpu", phase_train_card_vs_cpu, inp.intrin, dev)
+    run("train_streaming", phase_train_streaming, inp.intrin, dev)
     tables, probe_launches = run("probes_path", phase_probes_path, smi)
     probe_res = run("probes_vs_plain", phase_probes_vs_plain, dev, tables,
                     probe_launches)
+    kernels = [
+        entry("evaluate_layered_cuda", "forest_eval.cu",
+              "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],
+              k1["live"]),
+        entry("plane_band_gauss_cuda", "preproc.cu",
+              "beats3d_tpu/ops/preproc_pallas.py:126", launches[1], k2[1]),
+        entry("evaluate_forest_cuda", "forest_eval.cu",
+              "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
+              dict(b1["golden_r1"], max_abs_err=max(
+                  v["max_abs_err"] for v in b1.values()))),
+        entry("train_feature_bits_cuda", "train_features.cu",
+              "beats3d_tpu/ops/train_features_pallas.py:191 and :238",
+              train_launches[0], b4),
+    ] + run("probe_bounds", probe_entries, dev, probe_res, probe_launches)
     say("wall_seconds", **walls)
-    print(json.dumps({"kernels": [
-        {"name": "evaluate_layered_cuda", "route": "cuda",
-         "source": "beats3d_tpu_torch/csrc/forest_eval.cu",
-         "replaces": "beats3d_tpu/ops/forest_eval_pallas.py:2230",
-         "launches": launches[0], "max_abs_err": k1["live"]["max_abs_err"],
-         "ms": k1["live"]["ms"], "plain_ms": k1["live"]["plain_ms"]},
-        {"name": "plane_band_gauss_cuda", "route": "cuda",
-         "source": "beats3d_tpu_torch/csrc/preproc.cu",
-         "replaces": "beats3d_tpu/ops/preproc_pallas.py:126",
-         "launches": launches[1], "max_abs_err": k2[1]["max_abs_err"],
-         "ms": k2[1]["ms"], "plain_ms": k2[1]["plain_ms"]},
-        {"name": "evaluate_forest_cuda", "route": "cuda",
-         "source": "beats3d_tpu_torch/csrc/forest_eval.cu",
-         "replaces": "beats3d_tpu/ops/forest_eval_pallas.py:1940",
-         "launches": train_launches[1],
-         "max_abs_err": max(v["max_abs_err"] for v in b1.values()),
-         "ms": b1["golden_r1"]["ms"], "plain_ms": b1["golden_r1"]["plain_ms"]},
-        {"name": "train_feature_bits_cuda", "route": "cuda",
-         "source": "beats3d_tpu_torch/csrc/train_features.cu",
-         "replaces": "beats3d_tpu/ops/train_features_pallas.py:191 and :238",
-         "launches": train_launches[0], "max_abs_err": b4["max_abs_err"],
-         "ms": b4["ms"], "plain_ms": b4["plain_ms"]},
-    ] + probe_entries(probe_res, probe_launches)}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

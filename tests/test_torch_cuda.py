@@ -111,6 +111,149 @@ def test_preproc_kernel_single_frame_and_dtype(cuda_dev):
                                            150.0, 40.0)
 
 
+def _layered(rng_np, dev, trees, depths=(4, 6), classes=(3, 5), r=2,
+             filter_class=1, deep_walk=False):
+    """A two-layer model from numpy forests: layer 1 filtered on layer 0's
+    ``filter_class``; ``deep_walk``: layer 1's last-level left sides
+    descend, so those walks end after the last level."""
+    f0 = fixtures.random_forest_flat(rng_np, trees, depths[0], classes[0])
+    f1 = fixtures.random_forest_flat(rng_np, trees, depths[1], classes[1])
+    if deep_walk:
+        f1[:, 2 ** (depths[1] - 1) - 1:, 5] = -1.0
+    conditions = [[1, 2], [0, 1]] + [[0, 2 + i] for i in range(classes[1] - 1)]
+    colors = np.full((classes[1], 4), 255, np.uint8)
+    return LayeredDecisionForest.from_numpy(
+        [(f0, None, None), (f1, 0, filter_class)], np.array(conditions),
+        colors, dev, labels_reduce=r)
+
+
+def _k1_same_as_plain(m, depth, r, scale=1.0, **kw):
+    k = forest_eval_cuda.evaluate_layered_cuda
+    before = k.launches
+    got = k(depth, m.layers, m.conditions, labels_reduce=r,
+            scale_factor=scale, **kw)
+    want = forest_eval_cuda.evaluate_layered_plain(
+        depth, m.layers, m.conditions, labels_reduce=r, scale_factor=scale)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trees,r,scale,h,w", [
+    (1, 2, 1.0, 48, 104), (3, 1, 0.5, 30, 90), (4, 2, 0.25, 64, 200),
+    (5, 1, 1.0, 17, 61), (4, 1, 2.0, 33, 47)])
+def test_layered_kernel_trees_widths_scales(rng_np, cuda_dev, trees, r,
+                                            scale, h, w):
+    """K1 against plain: T = 1, 3, 4, 5 trees per layer, label widths that
+    are not multiples of 32 or of the pixels per warp, r = 1 and 2,
+    scale != 1."""
+    m = _layered(rng_np, cuda_dev, trees, r=r)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, h, w))
+    labels = _k1_same_as_plain(m, depth.to(cuda_dev).to(torch.int32).contiguous(),
+                               r, scale)
+    assert ((labels != 65535) & (labels != 0)).any()
+
+
+@pytest.mark.cuda
+def test_layered_kernel_lanes(rng_np, cuda_dev):
+    """Every lane grouping gives the plain labels, with 4 and with 5 trees
+    per layer (a lane then walks two trees, or none)."""
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 3, 40, 72))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    for trees in (4, 5):
+        m = _layered(rng_np, cuda_dev, trees, depths=(3, 9))
+        for lanes in (0, 1, 2, 4, 8, 16):
+            _k1_same_as_plain(m, depth, 2, lanes=lanes)
+
+
+@pytest.mark.cuda
+def test_layered_kernel_deep_walks_absent_class_ineligible(rng_np, cuda_dev):
+    """Walks that still descend after the last level; a filtered layer
+    whose class layer 0 never gives; an image with no eligible pixel."""
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 36, 64))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    m = _layered(rng_np, cuda_dev, 4, deep_walk=True)
+    _k1_same_as_plain(m, depth, 2)
+    m = _layered(rng_np, cuda_dev, 3, classes=(2, 5), filter_class=9)
+    labels = _k1_same_as_plain(m, depth, 1)
+    assert not np.isin(labels, np.arange(2, 6)).any()   # layer 1 never ran
+    empty = torch.zeros_like(depth)
+    empty[1] = 65535
+    labels = _k1_same_as_plain(m, empty, 2)
+    assert (labels == 65535).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 32])
+def test_layered_kernel_batch_rounds(rng_np, cuda_dev, n):
+    """N = 1, and N = 32 crops of 448x512: the batched call's shape, where
+    the kernel halves the lanes per pixel (each lane walks two trees) and
+    the grid fills the card many times over."""
+    m = _layered(rng_np, cuda_dev, 4, depths=(8, 10), classes=(2, 7))
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, n, 448, 512))
+    _k1_same_as_plain(m, depth.to(cuda_dev).to(torch.int32).contiguous(), 2)
+
+
+def _k2_same_as_plain(depth, mat, pp, focal, thr=40.0):
+    k = preproc_cuda.plane_band_gauss_cuda
+    before = k.launches
+    got = k(depth, mat, pp, focal, thr)
+    want = preproc_cuda.plane_band_gauss_plain(depth, mat, pp, focal, thr)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert int((got.long() - want.long()).abs().max()) == 0   # max_abs_err 0
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(1, 480, 848), (16, 37, 200), (3, 40, 134),
+                                   (2, 23, 61)])
+def test_preproc_kernel_shapes(rng_np, cuda_dev, b, h, w):
+    """K2 bit for bit against plain: B = 1 and 16, W not a multiple of 64
+    (nor of 4: the scalar path), H not a multiple of 16."""
+    d = fixtures.random_depth_image(rng_np, b, h, w, missing_frac=0.15,
+                                    far_frac=0.0)
+    d = np.where(d > 0, (d % 400) + 2350, 0).astype(np.int32)
+    d[:, h // 3: h // 2, :] = 2500
+    depth = torch.as_tensor(d).to(cuda_dev).contiguous()
+    mat = torch.eye(4, device=cuda_dev)
+    mat[2, 3] = -2600.0
+    out = _k2_same_as_plain(depth, mat, (w / 2.0, h / 2.0), 180.0)
+    assert out.any() and (out == 0).any()
+
+
+@pytest.mark.cuda
+def test_preproc_kernel_uniform_tiles(rng_np, cuda_dev):
+    """Tiles that are all zero (an all-missing frame, a plane that cuts
+    every pixel) or all kept (a plane that keeps every pixel), a frame that
+    mixes them, and a depth tensor whose data is not 16-byte aligned."""
+    h, w = 64, 192
+    mat = torch.eye(4, device=cuda_dev)
+    mat[2, 3] = -2600.0
+    pp = (96.0, 32.0)
+    missing = torch.zeros((1, h, w), dtype=torch.int32, device=cuda_dev)
+    assert not _k2_same_as_plain(missing, mat, pp, 200.0).any()
+    d = rng_np.integers(2000, 2400, (2, h, w)).astype(np.int32)
+    depth = torch.as_tensor(d).to(cuda_dev)
+    cut_all = torch.eye(4, device=cuda_dev)          # z = d > -thr: all cut
+    assert not _k2_same_as_plain(depth, cut_all, pp, 200.0).any()
+    kept = _k2_same_as_plain(depth, mat, pp, 200.0)  # z = d - 2600: all kept
+    assert (kept > 0).all()
+    mixed = d.copy()
+    mixed[:, :, 100:] = 2590                         # cut: z = -10
+    mixed[:, 20:30, :] = 0                           # missing
+    _k2_same_as_plain(torch.as_tensor(mixed).to(cuda_dev), mat, pp, 200.0)
+    buf = torch.as_tensor(d.reshape(-1)).to(cuda_dev)
+    storage = torch.empty(2 * h * w + 1, dtype=torch.int32, device=cuda_dev)
+    storage[1:] = buf
+    unaligned = storage[1:].view(2, h, w)
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    _k2_same_as_plain(unaligned, mat, pp, 200.0)
+
+
 def _b4_inputs(rng_np, dev, p):
     depth = fixtures.random_depth_image(rng_np, 3, 40, 72)
     depth[0, 5, 7] = 0          # a zero centre

@@ -22,7 +22,9 @@ from beats3d_tpu.models.forest import PackedForest as JaxPacked
 from beats3d_tpu.ops import forest_eval as jfe
 from beats3d_tpu.ops import forest_eval_pallas as fep
 from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.models.forest import DecisionForest, PackedForest
+from beats3d_tpu_torch.models.forest import (DecisionForest, PackedForest,
+                                             kernel_tables)
+from beats3d_tpu_torch.models.layered import run_layered
 from beats3d_tpu_torch.ops import forest_eval, forest_eval_cuda
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -240,3 +242,82 @@ def test_run_live_frame_matches_jax(rng):
         intrin.pp, intrin.fx, torch.as_tensor(flat), 40.0)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want == 65535).any() and (want != 65535).sum() > 10000
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def flat_from_kernel_tables(header, pdf):
+    """The dense forest that kernel_tables repacked."""
+    t, nodes, _, c = pdf.shape
+    return torch.cat([header[..., :7], pdf.reshape(t, nodes, 2 * c)], dim=-1)
+
+
+@pytest.mark.parametrize("t,d,c", [(3, 5, 5), (1, 4, 2), (5, 6, 16)])
+def test_kernel_tables_roundtrip(rng, t, d, c):
+    """The layered kernel's repacking: 32-byte headers, the pdf table read
+    at the leaves, and back to the dense forest bit for bit."""
+    flat = torch.as_tensor(fixtures.random_forest_flat(rng, t, d, c))
+    header, pdf = kernel_tables(flat)
+    assert header.shape == (t, 2 ** d - 1, 8) and header.dtype == torch.float32
+    assert header.is_contiguous() and header[0, 0].numel() * 4 == 32
+    assert pdf.shape == (t, 2 ** d - 1, 2, c) and pdf.is_contiguous()
+    assert torch.equal(_bits(header[..., 7]), torch.zeros_like(_bits(header[..., 7])))
+    assert torch.equal(_bits(header[..., :7]), _bits(flat[..., :7]))
+    assert torch.equal(_bits(pdf[:, :, 0]), _bits(flat[..., 7:7 + c]))
+    assert torch.equal(_bits(pdf[:, :, 1]), _bits(flat[..., 7 + c:]))
+    assert torch.equal(_bits(flat_from_kernel_tables(header, pdf)), _bits(flat))
+
+
+def test_kernel_tables_flagship_roundtrip():
+    """Both flagship layers (D=8 T=4 C=2, D=16 T=4 C=7) as the model holds
+    them after load."""
+    model = LayeredDecisionForest.load(
+        os.path.join(FLAGSHIP, "model_cfg.json"), device="cpu")
+    for l in model.layers:
+        assert torch.equal(_bits(flat_from_kernel_tables(l.header, l.pdf)),
+                           _bits(l.flat))
+    assert model.layers[1].header.shape == (4, 65535, 8)
+    assert model.layers[1].pdf.shape == (4, 65535, 2, 7)
+
+
+def _oracle_layered(jm, depth, r, scale):
+    layer_labels = []
+    for l in jm.layers:
+        kw = dict(labels_reduce=r, scale_factor=scale)
+        if l.filter_model is not None:
+            kw.update(filter_images=layer_labels[l.filter_model],
+                      filter_class=l.filter_model_class)
+        t, nodes, els = l.flat.shape
+        layer_labels.append(oracle.eval_forest(
+            depth, l.flat, int(np.log2(nodes + 1)), (els - 7) // 2, **kw))
+    return np.stack([oracle.composite_labels([ll[i] for ll in layer_labels],
+                                             jm.conditions_np)
+                     for i in range(depth.shape[0])])
+
+
+@pytest.mark.parametrize("h,w,r,scale", [(24, 32, 2, 1.0), (20, 36, 1, 0.5),
+                                         (26, 40, 2, 0.25)])
+def test_layered_from_jax_params_matches_xla_and_oracle(tmp_path, rng, h, w,
+                                                        r, scale):
+    """run_layered on a CPU model built from the JAX model's parameters
+    (which builds the kernel's tables too) against JAX's evaluate_layered on
+    the XLA path and against tests/oracle.py: labels bit-exact."""
+    cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
+    jm = JaxLayered.load(cfg_path, labels_reduce=r)
+    tm = LayeredDecisionForest.from_numpy(
+        [(l.flat, l.filter_model, l.filter_model_class) for l in jm.layers],
+        jm.conditions_np, jm.label_colors, "cpu", labels_reduce=r)
+    for l, jl in zip(tm.layers, jm.layers):
+        h_, p_ = kernel_tables(torch.as_tensor(np.asarray(jl.flat)))
+        assert torch.equal(_bits(l.header), _bits(h_))
+        assert torch.equal(_bits(l.pdf), _bits(p_))
+    depth = fixtures.random_depth_image(rng, 2, h, w)
+    want = np.asarray(jm.run(jnp.asarray(depth), scale_factor=scale))
+    got = run_layered(torch.as_tensor(depth), tm, labels_reduce=r,
+                      scale_factor=scale)
+    assert tm.kernel_descs is None          # the CPU path builds none
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _oracle_layered(jm, depth, r, scale))
+    assert ((want != 65535) & (want != 0)).any()

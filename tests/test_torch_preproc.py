@@ -104,3 +104,28 @@ def test_gaussian_kernel_and_int32_carry(rng):
         focal, 40.0)
     assert a.dtype == torch.int32
     np.testing.assert_array_equal(a.numpy(), _port(d, pp, focal, 40.0))
+
+
+def test_kernel_taps_built_once_with_row_major_sum():
+    """The K2 wrapper's taps: the 25 weights of gaussian_kernel(5, 2.0) in
+    row-major order and their float32 row-major sum, which is the plain
+    filter's wn at a pixel whose 25 taps are all kept; built once."""
+    taps = preproc_cuda.kernel_taps(5, 2.0)
+    assert taps is preproc_cuda.kernel_taps(5, 2.0)
+    k = points.gaussian_kernel(5, 2.0)
+    np.testing.assert_array_equal(np.asarray(taps[:25], np.float32),
+                                  k.reshape(-1))
+    wn = torch.zeros((), dtype=torch.float32)
+    for kv in torch.as_tensor(k).reshape(-1):
+        wn = wn + kv
+    assert np.float32(taps[25]) == np.float32(wn.item())
+    # a kept 7x7 patch of one depth: the centre pixel's output is
+    # floor(sn / wn) with that wn
+    d = np.zeros((1, 7, 7), np.uint16)
+    d[:] = 2300
+    out = preproc_cuda.plane_band_gauss_cuda(
+        torch.as_tensor(d), torch.as_tensor(PLANE), (3.0, 3.0), 600.0, 40.0)
+    sn = torch.zeros((), dtype=torch.float32)
+    for kv in torch.as_tensor(k).reshape(-1):
+        sn = sn + kv * torch.tensor(2300.0)
+    assert int(out[0, 3, 3]) == int(np.floor(np.float32(sn.item()) / np.float32(taps[25])))
