@@ -3,7 +3,7 @@
 // * K1, evaluate_layered_kernel (evaluate_layered_cuda): every layer of a
 //   layered forest plus the conditions composite;
 // * B1, evaluate_forest_kernel (evaluate_forest_cuda): one forest, at the
-//   end of this file.
+//   end of this file, on K1's design.
 //
 // K1 replaces the Pallas TPU kernel
 // beats3d_tpu/ops/forest_eval_pallas.py:evaluate_layered_pallas
@@ -25,8 +25,9 @@
 // (1.8 MB for the live frame's two 448x512 crops), the labels and the node
 // rows the pixels visit (0.35 MB of the flagship's headers on the live
 // crops), about 1 us at 3.35 TB/s.  What a pixel costs is latency: each tree level is a
-// node read whose address depends on the previous branch, then four IEEE
-// divisions, then two depth gathers whose addresses depend on the node.
+// node read whose address depends on the previous branch, then four probe
+// quotients (forest_walk.cuh: one reciprocal per pixel, two multiply-adds
+// per quotient), then two depth gathers whose addresses depend on the node.
 // One thread per pixel walking the 4 coarse and then the 4 fine trees is a
 // chain of up to 96 dependent levels, and the live frame fills less than
 // one wave of such threads, so the longest chain sets the time.  The
@@ -68,10 +69,8 @@ constexpr int kMaxLayers = 4;
 constexpr int kMaxClasses = 16;
 constexpr int kMaxConditions = 128;
 constexpr int kMaxTrees = 16;
-constexpr int kBlockX = 32;                   // B1's block
-constexpr int kBlockY = 8;
-constexpr int kLayeredThreads = 256;          // K1's block: 8 warps, one
-                                              // label row each
+constexpr int kLayeredThreads = 256;          // K1's and B1's block: 8
+                                              // warps, one label row each
 constexpr int kWarps = kLayeredThreads / 32;
 
 }  // namespace
@@ -102,7 +101,7 @@ namespace {
 // when the walk still descends after the last level.
 __device__ __forceinline__ int2 walk(const B3dLayerDesc& l, int t,
                                      const int32_t* __restrict__ img, int h,
-                                     int w, int y, int x, float d,
+                                     int w, int y, int x, float d, float rd,
                                      float scale) {
   const int nodes = (1 << l.levels) - 1;
   const float4* tree = l.header + 2 * static_cast<size_t>(t) * nodes;
@@ -112,7 +111,8 @@ __device__ __forceinline__ int2 walk(const B3dLayerDesc& l, int t,
     const float4 a = __ldg(tree + 2 * row);
     const float4 b = __ldg(tree + 2 * row + 1);
     const float f =
-        b3d::depth_feature_uv(img, h, w, y, x, d, scale, a.x, a.y, a.z, a.w);
+        b3d::depth_feature_uv(img, h, w, y, x, d, rd, scale, a.x, a.y, a.z,
+                              a.w);
     const int side = (f < b.x) ? 0 : 1;
     if (floorf(side ? b.z : b.y) == -1.0f) {
       g = 2 * g + side;
@@ -162,6 +162,7 @@ evaluate_layered_kernel(const int32_t* __restrict__ depth,
   const int dc = inside ? __ldg(img + static_cast<size_t>(y) * w + x) : 0;
   const bool base_eligible = dc != 0 && dc != b3d::kMissing;
   const float d = static_cast<float>(dc);
+  const float rd = __frcp_rn(d);
 
   int labels[kMaxLayers];
 #pragma unroll
@@ -180,7 +181,7 @@ evaluate_layered_kernel(const int32_t* __restrict__ depth,
     }
     if (eligible) {
       for (int t = k; t < layer.trees; t += G) {
-        ent[t] = walk(layer, t, img, h, w, y, x, d, scale);
+        ent[t] = walk(layer, t, img, h, w, y, x, d, rd, scale);
       }
     }
     __syncwarp();
@@ -361,117 +362,225 @@ extern "C" int b3d_evaluate_layered(const int32_t* depth, int32_t* out, int n,
 // beats3d_tpu/ops/forest_eval.py:evaluate_forest: labels of one forest on
 // the stride-r grid, with an optional filter image (evaluate only where it
 // equals filter_class), a probe scale, and single-tree semantics
-// (write_all_eligible = 0: write only where every tree reached a leaf).
+// (write_all_eligible = 0: write only where every tree reached a leaf);
+// the argmax takes the strictly greater class from (0.0, class 0), the
+// first maximum; 65535 marks pixels not written.
 //
-// Design: one thread per label pixel walks every tree with walk_tree_level
-// and records each tree's leaf pdf and the level it stopped at.  The pdfs
-// are then summed in the plain evaluator's order, level by level and in
-// tree order within a level, so the float32 sums, and with them an argmax
-// near a tie, are the plain evaluator's bit for bit (the trainer picks trees
-// by the labels this kernel writes).  The argmax takes the strictly greater
-// class from (0.0, class 0), the first maximum; 65535 marks pixels not
-// written.  Bound, as K1, by dependent gathers (node row, then two depth
-// probes per level); occupancy hides their latency, the node rows and depth
-// go through the read-only cache, and a D=16 forest stays in the 50 MB L2.
-// Ineligible pixels return after one or two loads.
+// Bound, as K1, by latency: per level a node read, four probe offsets and
+// two depth gathers whose addresses depend on the node; on the golden
+// frames only ~10 % of the pixels are eligible, so the chains run in less
+// than one wave.  The trainer calls it mostly on one new tree (T = 1),
+// read in place in the dense layout (its rows are new at every call; a
+// repack would cost a pass of its own).
+//
+// Design: K1's, on the dense layout.  G lanes per pixel, lane k walking
+// trees k, k + G, ... (one lane per tree, halved while the lanes would
+// fill the card more than 4 times over: on 848x480 frames at r = 1 most
+// pixels are ineligible, and idle lanes cost more than the chain); a block
+// covers (32 / G) x 8 label pixels, one row per warp; each lane writes its
+// trees' (stop level, leaf side) to a per-warp scratch in shared memory and
+// then sums its classes k, k + G, ... level by level, in tree order within
+// a level (the plain order, so the float32 sums and an argmax near a tie
+// are the plain evaluator's bit for bit); the group's argmax is a shuffle
+// butterfly that takes the smaller class on a tie.  No per-thread array is
+// indexed at run time (a pdf pointer and a stop level per tree would take
+// 192 bytes of local memory), and the class sums are sized to the forest
+// (8 or 16).
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+namespace {
+
+// Walks one dense tree (rows of els floats) for the pixel (y, x) of centre
+// depth d.  Returns (stop level, 2 * row + side), or (levels, -1) when the
+// walk still descends after the last level.
+__device__ __forceinline__ int2 walk_dense(const float* __restrict__ tree,
+                                           int levels, int els,
+                                           const int32_t* __restrict__ img,
+                                           int h, int w, int y, int x,
+                                           float d, float rd, float scale) {
+  int row = 0;
+  for (int j = 0; j < levels; ++j) {
+    const float* node = tree + static_cast<size_t>(row) * els;
+    const float f = b3d::depth_feature_uv(img, h, w, y, x, d, rd, scale,
+                                          __ldg(node), __ldg(node + 1),
+                                          __ldg(node + 2), __ldg(node + 3));
+    const int side = (f < __ldg(node + 4)) ? 0 : 1;
+    if (floorf(__ldg(node + 5 + side)) != -1.0f) {
+      return make_int2(j, 2 * row + side);
+    }
+    row = 2 * row + 1 + side;
+  }
+  return make_int2(levels, -1);
+}
+
+template <int G, int kMaxC>
+__global__ void __launch_bounds__(kLayeredThreads, 1)
 evaluate_forest_kernel(const int32_t* __restrict__ depth,
                        int32_t* __restrict__ out, int h, int w, int r,
                        float scale, const float* __restrict__ forest,
                        int trees, int levels, int classes,
                        const int32_t* __restrict__ filter, int filter_class,
                        int write_all_eligible) {
+  constexpr int kPix = 32 / G;
+  constexpr int kCls = (kMaxC + G - 1) / G;
+  extern __shared__ int2 scratch[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int pix = lane / G;
+  const int k = lane % G;
+  int2* ent = scratch + (warp * kPix + pix) * trees;
   const int hl = h / r;
   const int wl = w / r;
-  const int xl = blockIdx.x * blockDim.x + threadIdx.x;
-  const int yl = blockIdx.y * blockDim.y + threadIdx.y;
-  if (xl >= wl || yl >= hl) return;
-  const size_t oi = (static_cast<size_t>(blockIdx.z) * hl + yl) * wl + xl;
+  const int yl = blockIdx.y * kWarps + warp;
+  if (yl >= hl) return;                                // the whole warp
+
+  const int xl = blockIdx.x * kPix + pix;
+  const bool inside = xl < wl;
   const int32_t* img = depth + static_cast<size_t>(blockIdx.z) * h * w;
   const int y = yl * r;
   const int x = xl * r;
-  const int dc = __ldg(img + static_cast<size_t>(y) * w + x);
+  const size_t oi = (static_cast<size_t>(blockIdx.z) * hl + yl) * wl + xl;
+  const int dc = inside ? __ldg(img + static_cast<size_t>(y) * w + x) : 0;
   bool eligible = dc != 0 && dc != b3d::kMissing;
   if (eligible && filter != nullptr) eligible = __ldg(filter + oi) == filter_class;
-  if (!eligible) {
-    out[oi] = b3d::kMissing;
-    return;
-  }
   const float d = static_cast<float>(dc);
+  const float rd = __frcp_rn(d);
+  const int els = 7 + 2 * classes;
+  const size_t nodes = (size_t{1} << levels) - 1;
 
-  const size_t tree_stride =
-      static_cast<size_t>((1 << levels) - 1) * (7 + 2 * classes);
-  const float* pdf[kMaxTrees];
-  int stop[kMaxTrees];
-  bool all_done = true;
-  for (int t = 0; t < trees; ++t) {
-    pdf[t] = b3d::walk_tree_level(forest + t * tree_stride, levels, classes,
-                                  img, h, w, y, x, d, scale, &stop[t]);
-    all_done = all_done && pdf[t] != nullptr;
+  bool done = true;                  // every tree of the lane reached a leaf
+  if (eligible) {
+    for (int t = k; t < trees; t += G) {
+      const int2 e = walk_dense(forest + t * nodes * els, levels, els, img, h,
+                                w, y, x, d, rd, scale);
+      ent[t] = e;
+      done = done && e.y >= 0;
+    }
   }
-  if (!write_all_eligible && !all_done) {
-    out[oi] = b3d::kMissing;
-    return;
+#pragma unroll
+  for (int m = 1; m < G; m <<= 1) {
+    done = __shfl_xor_sync(0xffffffffu, static_cast<int>(done), m) && done;
   }
-
-  float acc[kMaxClasses];
+  const bool write = eligible && (write_all_eligible || done);
+  __syncwarp();
+  float best_v = 0.0f;
+  int best_c = kMaxClasses;                           // none above 0.0
+  if (__any_sync(0xffffffffu, write)) {
+    if (write) {
+      float acc[kCls];
 #pragma unroll
-  for (int k = 0; k < kMaxClasses; ++k) acc[k] = 0.0f;
-  for (int j = 0; j < levels; ++j) {
-    float level_sum[kMaxClasses];
-    bool any = false;
-    for (int t = 0; t < trees; ++t) {
-      if (pdf[t] == nullptr || stop[t] != j) continue;
+      for (int q = 0; q < kCls; ++q) acc[q] = 0.0f;
+      int prev = -1;
+      for (;;) {
+        int cur = 1 << 30;
+        for (int t = 0; t < trees; ++t) {
+          const int2 e = ent[t];
+          if (e.y >= 0 && e.x > prev && e.x < cur) cur = e.x;
+        }
+        if (cur == 1 << 30) break;
+        float level_sum[kCls];
+        bool first = true;
+        for (int t = 0; t < trees; ++t) {
+          const int2 e = ent[t];
+          if (e.y < 0 || e.x != cur) continue;
+          const float* pdf = forest + (t * nodes + (e.y >> 1)) * els + 7 +
+                             (e.y & 1) * classes;
 #pragma unroll
-      for (int k = 0; k < kMaxClasses; ++k) {
-        if (k < classes) {
-          const float v = __ldg(pdf[t] + k);
-          level_sum[k] = any ? __fadd_rn(level_sum[k], v) : v;
+          for (int q = 0; q < kCls; ++q) {
+            const int c = k + q * G;
+            if (c < classes) {
+              const float v = __ldg(pdf + c);
+              level_sum[q] = first ? v : __fadd_rn(level_sum[q], v);
+            }
+          }
+          first = false;
+        }
+#pragma unroll
+        for (int q = 0; q < kCls; ++q) {
+          if (k + q * G < classes) acc[q] = __fadd_rn(acc[q], level_sum[q]);
+        }
+        prev = cur;
+      }
+#pragma unroll
+      for (int q = 0; q < kCls; ++q) {
+        if (k + q * G < classes && acc[q] > best_v) {
+          best_v = acc[q];
+          best_c = k + q * G;
         }
       }
-      any = true;
     }
-    if (!any) continue;
+    // the group's argmax: the larger sum, the smaller class on a tie
 #pragma unroll
-    for (int k = 0; k < kMaxClasses; ++k) {
-      if (k < classes) acc[k] = __fadd_rn(acc[k], level_sum[k]);
+    for (int m = 1; m < G; m <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best_v, m);
+      const int oc = __shfl_xor_sync(0xffffffffu, best_c, m);
+      if (ov > best_v || (ov == best_v && oc < best_c)) {
+        best_v = ov;
+        best_c = oc;
+      }
     }
   }
-  float best = 0.0f;
-  int best_c = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxClasses; ++k) {
-    if (k < classes && acc[k] > best) {
-      best = acc[k];
-      best_c = k;
-    }
+  if (inside && k == 0) {
+    out[oi] = !write ? b3d::kMissing : (best_c == kMaxClasses ? 0 : best_c);
   }
-  out[oi] = best_c;
 }
+
+template <int G, int kMaxC>
+int launch_forest(const int32_t* depth, int32_t* out, int n, int h, int w,
+                  int r, float scale, const float* forest, int trees,
+                  int levels, int classes, const int32_t* filter,
+                  int filter_class, int write_all_eligible,
+                  cudaStream_t stream) {
+  const dim3 grid((w / r + 32 / G - 1) / (32 / G), (h / r + kWarps - 1) / kWarps, n);
+  const int smem = kWarps * (32 / G) * trees * static_cast<int>(sizeof(int2));
+  evaluate_forest_kernel<G, kMaxC><<<grid, kLayeredThreads, smem, stream>>>(
+      depth, out, h, w, r, scale, forest, trees, levels, classes, filter,
+      filter_class, write_all_eligible);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // depth: (n, h, w) int32; out: (n, h / r, w / r) int32; forest: (trees,
 // 2^levels - 1, 7 + 2 * classes) float32; filter: (n, h / r, w / r) int32 or
-// null; all device pointers.  Returns cudaGetLastError() after the launch.
+// null; all device pointers.  lanes: lanes per pixel (1, 2, 4, 8 or 16; 0 =
+// one per tree, halved while the lanes would fill the card more than 4
+// times over).  Returns cudaGetLastError() after the launch.
 extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
                                    int h, int w, int r, float scale,
                                    const float* forest, int trees, int levels,
                                    int classes, const int32_t* filter,
                                    int filter_class, int write_all_eligible,
-                                   void* stream) {
+                                   int lanes, void* stream) {
   if (trees < 1 || trees > kMaxTrees || classes < 1 || classes > kMaxClasses ||
       levels < 1 || levels > 30 || r < 1 || n > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int hl = h / r;
-  const int wl = w / r;
-  if (n == 0 || hl == 0 || wl == 0) return static_cast<int>(cudaSuccess);
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((wl + kBlockX - 1) / kBlockX, (hl + kBlockY - 1) / kBlockY, n);
-  evaluate_forest_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      depth, out, h, w, r, scale, forest, trees, levels, classes, filter,
-      filter_class, write_all_eligible);
-  return static_cast<int>(cudaGetLastError());
+  const long long pixels = static_cast<long long>(n) * (h / r) * (w / r);
+  if (pixels == 0) return static_cast<int>(cudaSuccess);
+  if (lanes == 0) {
+    lanes = 1;
+    while (lanes < trees) lanes *= 2;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    while (lanes > 1 && pixels * lanes > 4LL * sms * 2048) lanes /= 2;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define B3D_FOREST(G)                                                          \
+  case G:                                                                      \
+    return (classes <= 8 ? launch_forest<G, 8> : launch_forest<G, 16>)(        \
+        depth, out, n, h, w, r, scale, forest, trees, levels, classes, filter, \
+        filter_class, write_all_eligible, s);
+  switch (lanes) {
+    B3D_FOREST(1)
+    B3D_FOREST(2)
+    B3D_FOREST(4)
+    B3D_FOREST(8)
+    B3D_FOREST(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef B3D_FOREST
 }
 
 // Message of a cudaError_t returned by the entries above.

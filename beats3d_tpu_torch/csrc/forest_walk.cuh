@@ -1,19 +1,24 @@
 // Per-pixel depth feature, shared by the forest kernels (the layered and
 // single-forest kernels in forest_eval.cu) and the training split-bit kernel
 // (train_features.cu), so train-time and eval-time features stay
-// bit-identical; and the single-forest kernel's tree walk over the dense
-// reference forest layout.
-//
-// Forest layout: float32 (T, 2^D - 1, 7 + 2C), node g of level j at row
-// (1 << j) - 1 + g, fields (ux, uy, vx, vy, thresh, l_next, r_next,
-// l_pdf[C], r_pdf[C]).  A child flag whose floor is -1 descends to child
-// 2g + side of the next level; any other flag ends the walk with that side's
-// pdf.
+// bit-identical.
 //
 // Numerics follow beats3d_tpu/ops/forest_eval.py exactly: every product,
-// quotient and difference is rounded to float32 on its own (__fmul_rn,
-// __fdiv_rn, __fsub_rn: no FMA contraction, IEEE division), because probe
-// offsets floor((scale * u) / d) sit on integer boundaries.
+// quotient and difference is rounded to float32 on its own (no contracted
+// multiply-add, the IEEE quotient), because probe offsets
+// floor((scale * u) / d) sit on integer boundaries.
+//
+// The quotient.  An IEEE division is a sequence of about ten instructions
+// with a slow-path check, and a feature needs four, all by the same centre
+// depth d.  quot takes the reciprocal y = RN(1/d) once per pixel and then,
+// per offset, q = RN(a y), r = a - q d (one fused multiply-add, exact), and
+// RN(q + r y) (one more): Markstein's theorem (Muller et al., Handbook of
+// Floating-Point Arithmetic, the division by Newton-Raphson iteration
+// chapter) says that with y correctly rounded and q within an ulp of a/d,
+// this is RN(a/d), the IEEE quotient, as long as r stays a normal number;
+// a feature with an offset below 2^-90 divides.
+// tests/test_torch_train_features.py runs it, with every rounding emulated
+// exactly, for every d in 1..65535.
 #pragma once
 
 #include <cstdint>
@@ -30,57 +35,52 @@ __device__ __forceinline__ float probe_depth(const int32_t* __restrict__ img,
              : static_cast<float>(kMissing);
 }
 
-// floor((scale * u) / d), each step rounded to float32.
-__device__ __forceinline__ int probe_offset(float scale, float u, float d) {
-  return static_cast<int>(floorf(__fdiv_rn(__fmul_rn(scale, u), d)));
+// RN(a / d), given rd = RN(1 / d) and |a| >= 2^-90.
+__device__ __forceinline__ float quot(float a, float d, float rd) {
+  const float q = __fmul_rn(a, rd);
+  return __fmaf_rn(__fmaf_rn(-q, d, a), rd, q);
 }
 
-// Shotton depth-difference feature f = D(p + u/d) - D(p + v/d) at centre
-// pixel (y, x) of centre depth d, probe offsets u = (ux, uy), v = (vx, vy);
-// f = 0 when d == 0.
-__device__ __forceinline__ float depth_feature_uv(
-    const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
-    float scale, float ux, float uy, float vx, float vy) {
-  if (d == 0.0f) return 0.0f;
-  const float du = probe_depth(img, h, w, y + probe_offset(scale, uy, d),
-                               x + probe_offset(scale, ux, d));
-  const float dv = probe_depth(img, h, w, y + probe_offset(scale, vy, d),
-                               x + probe_offset(scale, vx, d));
-  return __fsub_rn(du, dv);
+// Depth read by the probe at offset (a_x, a_y) / d from (y, x): floor of
+// each quotient, divided exactly where `tiny`.
+__device__ __forceinline__ float probe_at(const int32_t* __restrict__ img,
+                                          int h, int w, int y, int x,
+                                          float ax, float ay, float d,
+                                          float rd, bool tiny) {
+  const float qy = tiny ? __fdiv_rn(ay, d) : quot(ay, d, rd);
+  const float qx = tiny ? __fdiv_rn(ax, d) : quot(ax, d, rd);
+  return probe_depth(img, h, w, y + static_cast<int>(floorf(qy)),
+                     x + static_cast<int>(floorf(qx)));
 }
 
-// The same feature with the offsets read from a forest node row.
+// Whether a feature's offsets must be divided exactly (one below 2^-90).
+__device__ __forceinline__ bool has_tiny(float ax, float ay, float bx,
+                                         float by) {
+  return fminf(fminf(fabsf(ax), fabsf(ay)), fminf(fabsf(bx), fabsf(by))) <
+         0x1p-90f;
+}
+
+// Shotton depth-difference feature f = D(p + a/d) - D(p + b/d) at centre
+// pixel (y, x) of centre depth d, probe offsets a = (ax, ay), b = (bx, by)
+// already scaled; rd = RN(1 / d) (__frcp_rn, once per pixel); tiny =
+// has_tiny(a, b); f = 0 when d == 0.
 __device__ __forceinline__ float depth_feature(
     const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
-    float scale, const float* __restrict__ node) {
+    float rd, float ax, float ay, float bx, float by, bool tiny) {
   if (d == 0.0f) return 0.0f;
-  return depth_feature_uv(img, h, w, y, x, d, scale, __ldg(node + 0),
-                          __ldg(node + 1), __ldg(node + 2), __ldg(node + 3));
+  return __fsub_rn(probe_at(img, h, w, y, x, ax, ay, d, rd, tiny),
+                   probe_at(img, h, w, y, x, bx, by, d, rd, tiny));
 }
 
-// Walks one tree from its root for the pixel (y, x) of centre depth d.
-// Returns the C-class pdf of the leaf side reached and sets *stop_level to
-// the level of that node; returns nullptr, with *stop_level = levels, when
-// the walk still descends after the last level (such a tree adds nothing).
-__device__ __forceinline__ const float* walk_tree_level(
-    const float* __restrict__ tree, int levels, int num_classes,
+// The feature at probe scale `scale`: offsets scale * u and scale * v, each
+// product rounded to float32.
+__device__ __forceinline__ float depth_feature_uv(
     const int32_t* __restrict__ img, int h, int w, int y, int x, float d,
-    float scale, int* stop_level) {
-  const int node_els = 7 + 2 * num_classes;
-  int g = 0;
-  for (int j = 0; j < levels; ++j) {
-    const float* node = tree + static_cast<size_t>((1 << j) - 1 + g) * node_els;
-    const float f = depth_feature(img, h, w, y, x, d, scale, node);
-    const int side = (f < __ldg(node + 4)) ? 0 : 1;
-    if (floorf(__ldg(node + 5 + side)) == -1.0f) {
-      g = 2 * g + side;
-      continue;
-    }
-    *stop_level = j;
-    return node + 7 + side * num_classes;
-  }
-  *stop_level = levels;
-  return nullptr;
+    float rd, float scale, float ux, float uy, float vx, float vy) {
+  const float ax = __fmul_rn(scale, ux), ay = __fmul_rn(scale, uy);
+  const float bx = __fmul_rn(scale, vx), by = __fmul_rn(scale, vy);
+  return depth_feature(img, h, w, y, x, d, rd, ax, ay, bx, by,
+                       has_tiny(ax, ay, bx, by));
 }
 
 }  // namespace b3d

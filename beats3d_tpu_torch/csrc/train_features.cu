@@ -16,19 +16,24 @@
 // == 0) skip their probes and get 0 words; their bits are don't-care in the
 // trainer's histogram.
 //
-// Design: one thread per pixel, blocks of 32 x 8 pixels.  The proposal table
-// (P x 5 floats) is staged once per block in shared memory; every thread
-// reads the same proposal in the same step, so the reads broadcast.  A
-// thread loops over the words and, within a word, over its 32 proposals,
-// ORs the bits into one register and stores the word, so the stores of a
-// warp are coalesced along x.
+// What bounds it on the H100: latency and instructions, not bytes (the
+// 4-image training block, 6.5 MB of int32 depth, stays in L2).  A feature
+// is four probe quotients and two depth gathers; the trainer's mask (its
+// pixels not yet at a leaf) holds ~170 k of a 4-image block's 1.6 M pixels
+// on the flagship-width training frames.
 //
-// What bounds it on the H100: the two dependent depth gathers per
-// (pixel, proposal).  One proposal's offsets are the same for the whole
-// image up to the 1/d scaling, so neighbouring threads probe neighbouring
-// pixels and the gathers mostly hit L1/L2; the 4-image training block
-// (6.5 MB of int32 depth) stays in L2.  Background pixels exit after one
-// load of the active mask.
+// Design: lanes over proposals.  A warp owns a 32-pixel row segment and
+// one 32-proposal word, lane k proposal 32 * word + k in registers; it
+// ballots the segment's active pixels and walks only the set bits: for
+// each, every lane computes its proposal's feature and __ballot_sync(f <
+// thresh) is that pixel's word.  Lane j keeps the word of pixel j and
+// stores it, one coalesced 128-byte store per segment and word; a segment
+// with no active pixel stores zeros after one load of its mask.  So the
+// work follows the active pixels: ~170 k active pixels become ~11 M lane
+// tasks that fill the card, and at a 1 % mask a warp spends one step per
+// active pixel instead of a thread's 64-step loop.  Each lane
+// takes the reciprocal of its own pixel's depth once and hands it round
+// with the depth, so a quotient is three instructions (forest_walk.cuh).
 
 #include <cstdint>
 
@@ -38,51 +43,58 @@
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
-constexpr int kMaxProposals = 2048;  // 40 KB of shared memory
+constexpr int kMaxProposals = 2048;
+constexpr int kWarps = 8;
 
-}  // namespace
-
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// Block: 8 warps, one image row each; blockIdx.y = word * ceil(h / 8) +
+// row tile, blockIdx.x the 32-pixel segment, blockIdx.z the image.
+__global__ void __launch_bounds__(32 * kWarps)
 train_feature_bits_kernel(const int32_t* __restrict__ depth,
                           const float* __restrict__ props, int num_props,
                           const uint8_t* __restrict__ active,
                           int32_t* __restrict__ out, int h, int w) {
-  extern __shared__ float s_props[];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < 5 * num_props; i += blockDim.x * blockDim.y) {
-    s_props[i] = props[i];
-  }
-  __syncthreads();
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
+  const int lane = threadIdx.x & 31;
+  const int rows = (h + kWarps - 1) / kWarps;
+  const int wd = blockIdx.y / rows;
+  const int y = (blockIdx.y % rows) * kWarps + (threadIdx.x >> 5);
+  if (y >= h) return;                                 // the whole warp
+  const int x0 = blockIdx.x * 32;
+  const bool inside = x0 + lane < w;
   const size_t plane = static_cast<size_t>(h) * w;
-  const size_t pix = static_cast<size_t>(y) * w + x;
+  const size_t pix = static_cast<size_t>(y) * w + x0 + lane;
   const int num_words = (num_props + 31) / 32;
-  int32_t* o = out + static_cast<size_t>(blockIdx.z) * num_words * plane + pix;
-  const bool act =
-      active == nullptr || active[static_cast<size_t>(blockIdx.z) * plane + pix] != 0;
-  if (!act) {
-    for (int wd = 0; wd < num_words; ++wd) o[wd * plane] = 0;
-    return;
-  }
-  const int32_t* img = depth + static_cast<size_t>(blockIdx.z) * plane;
-  const float d = static_cast<float>(__ldg(img + pix));
-  for (int wd = 0; wd < num_words; ++wd) {
-    const int in_word = min(32, num_props - 32 * wd);
-    uint32_t word = 0;
-    for (int k = 0; k < in_word; ++k) {
-      const float* p = s_props + 5 * (32 * wd + k);
-      const float f =
-          b3d::depth_feature_uv(img, h, w, y, x, d, 1.0f, p[0], p[1], p[2], p[3]);
-      if (f < p[4]) word |= 1u << k;
+  const bool act = inside && (active == nullptr ||
+                              active[blockIdx.z * plane + pix] != 0);
+  uint32_t todo = __ballot_sync(0xffffffffu, act);
+  uint32_t mine = 0;
+  if (todo) {
+    const int32_t* img = depth + blockIdx.z * plane;
+    const int p = 32 * wd + lane;
+    const bool valid = p < num_props;
+    const float* pr = props + 5 * (valid ? p : 0);
+    const float ux = __ldg(pr), uy = __ldg(pr + 1), vx = __ldg(pr + 2),
+                vy = __ldg(pr + 3), th = __ldg(pr + 4);
+    const bool tiny = b3d::has_tiny(ux, uy, vx, vy);
+    const float d_own = act ? static_cast<float>(__ldg(img + pix)) : 0.0f;
+    const float rd_own = __frcp_rn(d_own);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float d = __shfl_sync(0xffffffffu, d_own, j);
+      const float rd = __shfl_sync(0xffffffffu, rd_own, j);
+      const float f = b3d::depth_feature(img, h, w, y, x0 + j, d, rd, ux, uy,
+                                         vx, vy, tiny);
+      const uint32_t bits = __ballot_sync(0xffffffffu, valid && f < th);
+      if (lane == j) mine = bits;
     }
-    o[wd * plane] = static_cast<int32_t>(word);
+  }
+  if (inside) {
+    out[(static_cast<size_t>(blockIdx.z) * num_words + wd) * plane + pix] =
+        static_cast<int32_t>(mine);
   }
 }
+
+}  // namespace
 
 // depth: (n, h, w) int32; props: (num_props, 5) float32; active: (n, h, w)
 // bool or null; out: (n, ceil(num_props / 32), h, w) int32; all device
@@ -91,14 +103,14 @@ extern "C" int b3d_train_feature_bits(const int32_t* depth, const float* props,
                                       int num_props, const uint8_t* active,
                                       int32_t* out, int n, int h, int w,
                                       void* stream) {
-  if (num_props < 1 || num_props > kMaxProposals || n > 65535) {
+  const int words = (num_props + 31) / 32;
+  const dim3 grid((w + 31) / 32, ((h + kWarps - 1) / kWarps) * words, n);
+  if (num_props < 1 || num_props > kMaxProposals || n > 65535 ||
+      grid.y > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || h == 0 || w == 0) return static_cast<int>(cudaSuccess);
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, n);
-  const size_t smem = 5 * sizeof(float) * static_cast<size_t>(num_props);
-  train_feature_bits_kernel<<<grid, block, smem,
+  train_feature_bits_kernel<<<grid, 32 * kWarps, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       depth, props, num_props, active, out, h, w);
   return static_cast<int>(cudaGetLastError());

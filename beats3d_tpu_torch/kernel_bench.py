@@ -1,24 +1,32 @@
-"""The live frame path's kernels, K1 (layered forest) and K2 (plane band +
-gaussian), on the card: their inputs at the main path's shapes, the least
-time the card could take for them, and the parent-against-change timing.
+"""The port's redesigned kernels on the card: K1 (layered forest), B4
+(training split bits) and B1 (single forest), their inputs at the main
+paths' shapes, the least time the card could take for them, and the
+parent-against-change timing.
 
     python -m beats3d_tpu_torch.kernel_bench --parent DIR
 
 DIR holds an earlier version of ``forest_eval.cu``, ``forest_walk.cuh`` and
-``preproc.cu`` (for example ``git show REV:beats3d_tpu_torch/csrc/FILE``),
-with the C entries and layer descriptor of that version.  The script builds
-them with the port's nvcc flags into ``build/``, checks that the earlier and
-the current kernels give the same outputs, times them in turns (earlier,
-current, current, earlier) from CUDA graphs at every main-path shape, then
-times K1 for every lane grouping.  It prints one JSON line
-per measurement.  Needs a CUDA card; imports nothing of JAX.
+``train_features.cu`` (for example ``git show REV:beats3d_tpu_torch/csrc/
+FILE``), one whose B1 entry takes no ``lanes`` argument and whose K1 entry
+does.  The script builds them with
+the port's nvcc flags into ``build/``, checks that the earlier and the
+current kernels give the plain versions' outputs, and times them in turns
+(earlier, current, current, earlier) from CUDA graphs at every row.  Then
+B1 for each lane grouping (``b1_variant``), the dense forest's repack into
+K1's tables (``b1_repack``), and K1 for each lane grouping
+(``k1_sweep``).  The B4 and B1 designs that measured slower (pixel lanes with the proposals split over warps, 4 or 8 pixels per
+warp step, a reciprocal fast path for the divisions, lanes along the
+walk, reading the next level ahead) are not kept; their times are in
+PERF.md.  It prints one JSON line per measurement.  Needs a
+CUDA card; imports nothing of JAX.
 
-The inputs (``bench_inputs``) are the ones ``chip_smoke.py`` uses: the
-committed flagship, 16 articulated two-hand 848x480 scenes (seeds
-1000-1015) and a RANSAC plane from the first.  The bounds follow the card's
-published peaks: 3.35 TB/s of device memory and 67 TFLOP/s of float32
-outside the tensor cores (the larger of bytes / rate and operations / rate
-is the bound).
+The inputs are the ones ``chip_smoke.py`` uses: the committed flagship, 16
+articulated two-hand 848x480 scenes (seeds 1000-1015) and a RANSAC plane
+from the first (``bench_inputs``); 4 single-hand training frames and 64
+proposals (``b4_inputs``); the flagship's fine layer on the golden frames
+(``b1_cases``).  The bounds follow the card's published peaks: 3.35 TB/s
+of device memory and 67 TFLOP/s of float32 outside the tensor cores (the
+larger of bytes / rate and operations / rate is the bound).
 """
 
 from __future__ import annotations
@@ -35,12 +43,14 @@ import sys
 import numpy as np
 import torch
 
-from .data.synth import articulated_scene
+from .data.synth import articulated_scene, part_labels
 from .models import LayeredDecisionForest
-from .models.forest import PackedForest, forest_dims
-from .ops import cuda_lib, forest_eval, forest_eval_cuda, points, preproc_cuda
+from .models.forest import PackedForest, forest_dims, kernel_tables
+from .ops import (cuda_lib, forest_eval, forest_eval_cuda, points,
+                  train_features, train_features_cuda)
 from .ops import plane as plane_ops
 from .runtime import pipeline as pl
+from .train.proposals import make_random_features
 from .utils import CameraIntrinsics
 from .utils.profiler import graph_ms
 
@@ -119,6 +129,78 @@ def k1_shapes(inp: BenchInputs):
             "golden": inp.golden}
 
 
+def hand_frames(intrin, seeds):
+    """(depth, labels) uint16 stacks of single-hand 848x480 training frames;
+    the labels come from the rendered colours (part_labels)."""
+    scenes = [articulated_scene(intrin, np.random.default_rng(s),
+                                two_hands=False) for s in seeds]
+    return (np.stack([d for d, _ in scenes]),
+            np.stack([part_labels(c) for _, c in scenes]))
+
+
+def division_edge(h=480, w=848, p=64, seed=7):
+    """B4's division edge: every centre depth 1..65534 (a permutation, laid
+    along the rows, so a probe one pixel off reads another depth), and
+    proposals whose offsets are multiples of many depths (highly composite
+    numbers, small integers, the image sides) or their float32 neighbours,
+    thresholds across the features' range.  Returns (depth (1, h, w) int32,
+    props (p, 5) float32) as numpy."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(65534).astype(np.int32) + 1
+    depth = perm[np.arange(h * w) % 65534].reshape(1, h, w)
+    base = np.array([1, 2, 3, 7, 12, 480, 848, 840, 5040, 27720, 55440,
+                     65534, 65536, 360360, 720720], np.float32)
+    u = rng.choice(base, size=(p, 4)) * rng.choice([-1.0, 1.0], size=(p, 4))
+    u = u.astype(np.float32)
+    step = rng.integers(-1, 2, size=(p, 4))
+    u = np.where(step > 0, np.nextafter(u, np.float32(np.inf)),
+                 np.where(step < 0, np.nextafter(u, np.float32(-np.inf)), u))
+    thresh = rng.uniform(-30000.0, 30000.0, size=(p, 1))
+    return depth, np.concatenate([u, thresh], axis=1).astype(np.float32)
+
+
+def b4_cases(intrin, dev):
+    """B4's inputs, name -> (depth, props, active): 4 single-hand training
+    frames (seeds 2000-2003) with 64 proposals (seed 5) at the trainer's
+    mask (its labelled pixels), at every pixel, and at a sparse mask (1 % of
+    the pixels, scattered); and the division edge."""
+    depth, labels = hand_frames(intrin, range(2000, 2004))
+    d = torch.as_tensor(depth).to(dev).to(torch.int32).contiguous()
+    props = torch.as_tensor(make_random_features(
+        64, np.random.default_rng(5))).to(dev)
+    sparse = np.random.default_rng(6).random(depth.shape) < 0.01
+    edge_d, edge_p = division_edge()
+    return {
+        "active": (d, props, torch.as_tensor(labels > 0).to(dev)),
+        "all": (d, props, None),
+        "sparse": (d, props, torch.as_tensor(sparse).to(dev)),
+        "edge": (torch.as_tensor(edge_d).to(dev), torch.as_tensor(edge_p).to(dev),
+                 None),
+    }
+
+
+def b1_cases(model, dev):
+    """B1's inputs on the flagship golden depth frames (2x480x848): name ->
+    (dense forest, kwargs of evaluate_forest).  The fine layer (D=16, T=4,
+    C=7) at r=1, at r=2 filtered on the coarse layer's class 1 (from the
+    plain version), at scale 0.5; one tree with single-tree semantics (the
+    trainer's candidate scoring) and two trees (its final forest)."""
+    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    depth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
+    fine = model.layers[1].flat
+    coarse = forest_eval_cuda.evaluate_forest_plain(
+        depth, model.layers[0].flat, labels_reduce=2)
+    return depth, {
+        "golden_r1": (fine, dict(labels_reduce=1)),
+        "filter_r2": (fine, dict(labels_reduce=2, filter_images=coarse,
+                                 filter_class=1)),
+        "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5)),
+        "one_tree": (fine[:1].contiguous(),
+                     dict(labels_reduce=1, write_all_eligible=False)),
+        "two_trees": (fine[:2].contiguous(), dict(labels_reduce=1)),
+    }
+
+
 def k1_work(model, depth, r=2, scale=1.0):
     """(bytes, operations) K1 must spend on ``depth``: the depth read once,
     the labels written once, the 32-byte header of every node row the
@@ -182,41 +264,14 @@ def k2_work(depth):
     return 8 * depth.numel(), 114 * depth.numel()
 
 
-def k2_mix(inp, b=BATCH):
-    """How K2's inputs mix kept and zero pixels on the bench frames: the
-    share of band-kept pixels, and of 64x16 tiles and of 4x2 output blocks
-    whose staged pixels (2-pixel halo) are all zero, all kept, or mixed."""
-    import torch.nn.functional as F
-    d1 = points.plane_band_depth(inp.frames[:b], inp.plane, inp.intrin.pp,
-                                 inp.intrin.fx, THRESHOLD)
-    v = F.pad(d1.to(torch.float32), (2, 2, 2, 2), value=-1.0)
-
-    def shares(ty, tx):
-        # (b, tiles_y, tiles_x, ty + 4, tx + 4) windows at stride (ty, tx)
-        win = v.unfold(1, ty + 4, ty).unfold(2, tx + 4, tx).flatten(3)
-        zero = (win == 0).all(-1)
-        kept = (win > 0).all(-1)
-        n = zero.numel()
-        return dict(zero=int(zero.sum()) / n, kept=int(kept.sum()) / n,
-                    mixed=int((~zero & ~kept).sum()) / n)
-
-    return dict(kept_pixels=float((d1 > 0).float().mean()),
-                tiles_64x16=shares(16, 64), blocks_4x2=shares(2, 4))
-
-
 # ------------------------------------------------ the earlier kernels
 
-class _OldLayerDesc(ctypes.Structure):
-    _fields_ = [("forest", ctypes.c_void_p), ("trees", ctypes.c_int),
-                ("levels", ctypes.c_int), ("classes", ctypes.c_int),
-                ("filter_model", ctypes.c_int), ("filter_class", ctypes.c_int)]
-
-
 def build_parent(src_dir):
-    """Build the earlier forest_eval.cu and preproc.cu of ``src_dir`` into
-    build/beats3d_tpu_torch_parent/ with the port's flags; return the
-    loaded library and nvcc's log."""
-    srcs = [os.path.join(src_dir, f) for f in ("forest_eval.cu", "preproc.cu")]
+    """Build the earlier forest_eval.cu and train_features.cu of ``src_dir``
+    (with its forest_walk.cuh) into build/beats3d_tpu_torch_parent/ with the
+    port's flags; return the loaded library and nvcc's log."""
+    srcs = [os.path.join(src_dir, f)
+            for f in ("forest_eval.cu", "train_features.cu")]
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
     for f in srcs + [os.path.join(src_dir, "forest_walk.cuh")]:
         with open(f, "rb") as fh:
@@ -232,51 +287,71 @@ def build_parent(src_dir):
     lib = ctypes.CDLL(path)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.b3d_evaluate_layered.argtypes = [
-        vp, vp, i, i, i, i, f, ctypes.POINTER(_OldLayerDesc), i, vp, i, vp]
+        vp, vp, i, i, i, i, f, ctypes.POINTER(cuda_lib.LayerDesc), i, vp, i,
+        i, vp]
     lib.b3d_evaluate_layered.restype = i
-    lib.b3d_plane_band_gauss.argtypes = [
-        vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp]
-    lib.b3d_plane_band_gauss.restype = i
+    lib.b3d_evaluate_forest.argtypes = [
+        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, vp]
+    lib.b3d_evaluate_forest.restype = i
+    lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
+    lib.b3d_train_feature_bits.restype = i
     return lib, proc.stdout + proc.stderr
 
 
-def parent_k1(lib, model):
-    descs = (_OldLayerDesc * len(model.layers))()
-    for i, l in enumerate(model.layers):
-        descs[i] = _OldLayerDesc(
-            l.flat.data_ptr(), l.forest.num_trees, l.forest.max_depth,
-            l.forest.num_classes,
-            -1 if l.filter_model is None else l.filter_model,
-            0 if l.filter_model_class is None else l.filter_model_class)
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
+
+def _check(st, what):
+    if st:
+        raise RuntimeError(f"{what}: CUDA error {st}")
+
+
+def parent_k1(lib, model, descs):
     def run(depth, r=2, scale=1.0):
         n, h, w = depth.shape
         out = torch.empty((n, h // r, w // r), dtype=torch.int32,
                           device=depth.device)
-        st = lib.b3d_evaluate_layered(
+        _check(lib.b3d_evaluate_layered(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, scale, descs,
             len(descs), model.conditions.data_ptr(), model.conditions.shape[0],
-            torch.cuda.current_stream().cuda_stream)
-        if st:
-            raise RuntimeError(f"earlier K1: CUDA error {st}")
+            0, _stream()), "earlier K1")
         return out
     return run
 
 
-def parent_k2(lib, intrin):
-    taps = points.gaussian_kernel(5, 2.0).reshape(-1)
-    taps_c = (ctypes.c_float * 25)(*taps.tolist())
+def forest_runner(lib, *, parent=False, lanes=0):
+    """B1 from ``lib``: the earlier entry, or the current one with a lane
+    grouping (0: the kernel's choice)."""
+    def run(depth, flat, labels_reduce=1, filter_images=None, filter_class=-1,
+            scale_factor=1.0, write_all_eligible=True):
+        n, h, w = depth.shape
+        r = labels_reduce
+        t, lv, c = forest_dims(flat.shape)
+        out = torch.empty((n, h // r, w // r), dtype=torch.int32,
+                          device=depth.device)
+        extra = () if parent else (lanes,)
+        _check(lib.b3d_evaluate_forest(
+            depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
+            flat.data_ptr(), t, lv, c,
+            None if filter_images is None else filter_images.data_ptr(),
+            int(filter_class), int(write_all_eligible), *extra, _stream()),
+            "B1")
+        return out
+    return run
 
-    def run(depth, plane):
-        b, h, w = depth.shape
-        out = torch.empty_like(depth)
-        st = lib.b3d_plane_band_gauss(
-            depth.data_ptr(), out.data_ptr(), b, h, w, plane.data_ptr(),
-            float(np.float32(intrin.pp[0])), float(np.float32(intrin.pp[1])),
-            float(np.float32(intrin.fx)), float(np.float32(THRESHOLD)), taps_c,
-            torch.cuda.current_stream().cuda_stream)
-        if st:
-            raise RuntimeError(f"earlier K2: CUDA error {st}")
+
+def bits_runner(lib):
+    """B4 from ``lib``'s earlier entry, whose C signature it shares."""
+    def run(depth, props, active):
+        n, h, w = depth.shape
+        p = props.shape[0]
+        out = torch.empty((n, (p + 31) // 32, h, w), dtype=torch.int32,
+                          device=depth.device)
+        _check(lib.b3d_train_feature_bits(
+            depth.data_ptr(), props.data_ptr(), p,
+            None if active is None else active.data_ptr(), out.data_ptr(),
+            n, h, w, _stream()), "B4")
         return out
     return run
 
@@ -293,11 +368,55 @@ def say(what, **kw):
     print(json.dumps({"bench": what, **kw}), flush=True)
 
 
+def bench_b4(lib, intrin, dev, smi):
+    old = bits_runner(lib)
+    for name, (d, props, act) in b4_cases(intrin, dev).items():
+        want = train_features.train_feature_bits_plain(d, props, act)
+        new = train_features_cuda.train_feature_bits_cuda
+        mism = (int((old(d, props, act) != want).sum()),
+                int((new(d, props, act) != want).sum()))
+        bms, by = bound(*b4_work(d, props, act))
+        t = turns(lambda: old(d, props, act), lambda: new(d, props, act))
+        say("b4_turns", card=smi, case=name, dims=list(d.shape),
+            active_pixels=None if act is None else int(act.sum()),
+            word_mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
+            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
+            **t)
+
+
+def bench_b1(lib, new_lib, model, dev, smi):
+    old = forest_runner(lib, parent=True)
+    new = forest_eval_cuda.evaluate_forest_cuda
+    depth, cases = b1_cases(model, dev)
+    for name, (flat, kw) in cases.items():
+        want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
+        mism = (int((old(depth, flat, **kw) != want).sum()),
+                int((new(depth, flat, **kw) != want).sum()))
+        bms, by = bound(*forest_work(depth, flat, **kw))
+        t = turns(lambda: old(depth, flat, **kw), lambda: new(depth, flat, **kw))
+        say("b1_turns", card=smi, case=name, trees=int(flat.shape[0]),
+            mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
+            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
+            **t)
+        rows = []
+        for lanes in (1, 2, 4):
+            run = forest_runner(new_lib, lanes=lanes)
+            rows.append(dict(
+                lanes=lanes,
+                mismatches=int((run(depth, flat, **kw) != want).sum()),
+                ms=graph_ms(lambda: run(depth, flat, **kw))))
+        say("b1_variant", card=smi, case=name, rows=rows)
+    one = cases["one_tree"][0]
+    say("b1_repack", card=smi, case="one_tree",
+        repacked="models.forest.kernel_tables of one D=16 tree",
+        ms=graph_ms(lambda: kernel_tables(one)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="directory with the earlier forest_eval.cu, "
-                         "forest_walk.cuh and preproc.cu")
+                         "forest_walk.cuh and train_features.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA device")
@@ -307,16 +426,16 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60).stdout.strip()
     say("device", card=smi)
     lib, log = build_parent(args.parent)
-    cuda_lib.library()
+    new_lib = cuda_lib.library()
     say("build", parent_ptxas=cuda_lib.ptxas_summary(log),
         ptxas=cuda_lib.ptxas_summary(cuda_lib.LIBRARY.build.log))
     inp = bench_inputs(dev)
     m = inp.model
+    bench_b4(lib, inp.intrin, dev, smi)
+    bench_b1(lib, new_lib, m, dev, smi)
     K1 = forest_eval_cuda.evaluate_layered_cuda
-    K2 = preproc_cuda.plane_band_gauss_cuda
-    old_k1, old_k2 = parent_k1(lib, m), parent_k2(lib, inp.intrin)
     descs = forest_eval_cuda.layer_descs(m.layers, dev)
-
+    old_k1 = parent_k1(lib, m, descs)
     for name, depth in k1_shapes(inp).items():
         want = forest_eval_cuda.evaluate_layered_plain(
             depth, m.layers, m.conditions, labels_reduce=2)
@@ -330,19 +449,6 @@ def main(argv=None):
                              descs=descs))
         say("k1_turns", card=smi, shape=name, dims=list(depth.shape),
             mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
-            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
-            **t)
-    for b in (1, BATCH):
-        raw = inp.frames[:b].contiguous()
-        args_k2 = (inp.plane, inp.intrin.pp, inp.intrin.fx, THRESHOLD)
-        want = preproc_cuda.plane_band_gauss_plain(raw, *args_k2)
-        a, c = old_k2(raw, inp.plane), K2(raw, *args_k2)
-        errs = (int((a - want).abs().max()), int((c - want).abs().max()))
-        bms, by = bound(*k2_work(raw))
-        t = turns(lambda: old_k2(raw, inp.plane), lambda: K2(raw, *args_k2))
-        say("k2_turns", card=smi, batch=b, dims=list(raw.shape),
-            mix=k2_mix(inp, b),
-            max_abs_err_old_new=errs, bound_ms=bms, bound_by=by,
             share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
             **t)
     for name, depth in k1_shapes(inp).items():

@@ -12,7 +12,8 @@ Flags: ``sm_90a`` (Hopper); ``--fmad=false`` and ``-prec-div=true`` because
 probe offsets and the plane-band test sit on integer and threshold
 boundaries, where a contracted multiply-add or an approximate division moves
 results (the kernels also spell the arithmetic with ``__fmul_rn`` /
-``__fdiv_rn``).  Never ``--use_fast_math``.
+``__fdiv_rn`` and their quotient's two fused multiply-adds with
+``__fmaf_rn``).  Never ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ def _bind(lib):
     ]
     lib.b3d_plane_band_gauss.restype = i
     lib.b3d_evaluate_forest.argtypes = [
-        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, vp,
+        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, i, vp,
     ]
     lib.b3d_evaluate_forest.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]

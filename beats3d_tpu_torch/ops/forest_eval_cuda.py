@@ -199,7 +199,7 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
             forest.data_ptr(), trees, levels, classes,
             None if filter_images is None else filter_images.data_ptr(),
-            int(filter_class), int(bool(write_all_eligible)), stream,
+            int(filter_class), int(bool(write_all_eligible)), 0, stream,
         )
     cuda_lib.check(status, "evaluate_forest_cuda")
     evaluate_forest_cuda.launches += 1

@@ -13,7 +13,7 @@ import torch
 from . import cuda_lib
 from .train_features import train_feature_bits_plain
 
-MAX_PROPOSALS = 2048   # the proposal table is staged in shared memory
+MAX_PROPOSALS = 2048   # 64 words: blockIdx.y holds words x row tiles
 
 
 def train_feature_bits_cuda(depth, props, active=None):

@@ -16,8 +16,14 @@ Then drives the port's paths:
   time in place; the port's plain path on the CPU on the same frames;
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
-  (training split bits) and B1 (single-forest evaluation), plus a reduced
-  D=8 run compared with the CPU and with streaming;
+  (training split bits) and B1 (single-forest evaluation), its pct_match
+  held to the value every version of the kernels gave, then run again
+  with its second candidate tree under torch.profiler (B4's and B1's
+  device time in place, B4's per level); plus a reduced D=8 run compared
+  with the CPU and with streaming.  Before it, B4 word for word against
+  plain at the trainer's mask, every pixel, a 1 % mask and the division
+  edge (every centre depth 1..65534), and B1 against plain in five cases
+  (``kernel_bench.b4_cases``, ``b1_cases``);
 * the scripts/ Mosaic probes' counterparts (P1-P12,
   ``python -m beats3d_tpu_torch.probes``): every script's cost table at the
   script's shapes, then every mode at each of its counts held against the
@@ -52,9 +58,6 @@ sys.path.insert(0, HERE)
 
 from beats3d_tpu_torch.data.blocks import CompressedDataset  # noqa: E402
 from beats3d_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
-from beats3d_tpu_torch.data.synth import (  # noqa: E402
-    articulated_scene, part_labels,
-)
 from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
@@ -69,7 +72,7 @@ from beats3d_tpu_torch.runtime import pipeline as pl  # noqa: E402
 from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp  # noqa: E402
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
-from beats3d_tpu_torch.train import make_random_features, train_forest  # noqa: E402
+from beats3d_tpu_torch.train import train_forest  # noqa: E402
 from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
 
 FLAGSHIP = kb.FLAGSHIP
@@ -82,6 +85,9 @@ PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
 BATCH = kb.BATCH
 CLASSES = 7          # background, palm, five fingers
 TRAIN_FRAMES, TEST_FRAMES = 16, 4
+# train_path's pct_match on this data and seed: the value every earlier
+# version of the kernels gave (the trees do not depend on the kernels)
+PCT_MATCH_D16 = 0.8482417230045693
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
 # source, the pallas_call it replaces, operations per element of x per count
 # step of that case: the bound's operation count)
@@ -222,12 +228,15 @@ def kernel_device_ms(prof, needle):
     return n, (total_us / n / 1e3 if n else None)
 
 
-def device_profile(prof, calls, wall_ms):
+def device_profile(prof, calls, wall_ms, ranges=()):
     """Per call of a torch.profiler window: device operations (kernels,
     copies, sets), their device ms, the profiled wall ms, the device's idle
-    share of it, and the five largest device-time names."""
+    share of it, and the five largest device-time names.  ``ranges``: name
+    prefixes of record_function ranges, whose device-side spans are not
+    operations."""
     ops = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith(tuple(ranges))]
     dev_us = [(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0)), e) for e in ops]
     device_ms = sum(us for us, _ in dev_us) / 1e3 / calls
@@ -374,23 +383,12 @@ def phase_card_vs_cpu(model, scenes, plane, intrin):
         heights_max_rel_err=worst)
 
 
-def hand_frames(intrin, seeds):
-    """(depth, labels) uint16 stacks of single-hand 848x480 training frames;
-    the labels come from the rendered colours (part_labels)."""
-    scenes = [articulated_scene(intrin, np.random.default_rng(s),
-                                two_hands=False) for s in seeds]
-    return (np.stack([d for d, _ in scenes]),
-            np.stack([part_labels(c) for _, c in scenes]))
-
-
 def phase_b4(intrin, dev):
-    depth, labels = hand_frames(intrin, range(2000, 2004))
-    d = torch.as_tensor(depth).to(dev).to(torch.int32).contiguous()
-    active = torch.as_tensor(labels > 0).to(dev)
-    props = torch.as_tensor(make_random_features(
-        64, np.random.default_rng(5))).to(dev)
+    """B4 word for word against plain on the training frames at the
+    trainer's mask, every pixel, a sparse mask and the division edge
+    (``kernel_bench.b4_cases``)."""
     res = {}
-    for name, act in (("active", active), ("all", None)):
+    for name, (d, props, act) in kb.b4_cases(intrin, dev).items():
         got = B4(d, props, act)
         want = train_features.train_feature_bits_plain(d, props, act)
         torch.cuda.synchronize()
@@ -403,37 +401,26 @@ def phase_b4(intrin, dev):
             plain_ms=host_ms(lambda: train_features.train_feature_bits_plain(
                 d, props, act), iters=3),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        say("b4_vs_plain", pixels=name, shape=list(d.shape), proposals=64,
-            active_pixels=int(active.sum()), **res[name])
-        if res[name]["word_mismatches"]:
-            raise AssertionError(f"B4 vs plain ({name} pixels): "
-                                 f"{res[name]['word_mismatches']} words differ")
-    return res["active"]
+        say("b4_vs_plain", pixels=name, shape=list(d.shape),
+            proposals=int(props.shape[0]),
+            active_pixels=None if act is None else int(act.sum()),
+            **res[name])
+    bad = {k: v["word_mismatches"] for k, v in res.items() if v["word_mismatches"]}
+    if bad:
+        raise AssertionError(f"B4 vs plain, words that differ: {bad}")
+    return dict(res["active"], max_abs_err=max(
+        v["max_abs_err"] for v in res.values()))
 
 
 def phase_b1(model, dev):
-    """The flagship fine layer (D=16, T=4, C=7) as a single forest on the
-    golden depth frames."""
-    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
-    depth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
-    fine = model.layers[1]                      # flat + per-level tables
-    one = model.layers[1].flat[:1].contiguous()
-    one_tables = PackedForest.from_flat(one).tables()
-    coarse = B1(depth, model.layers[0].flat, labels_reduce=2)
-    cases = {
-        "golden_r1": (fine.flat, fine.forest.tables(), dict(labels_reduce=1)),
-        "filter_r2": (fine.flat, fine.forest.tables(),
-                      dict(labels_reduce=2, filter_images=coarse,
-                           filter_class=1)),
-        "scale_0.5": (fine.flat, fine.forest.tables(),
-                      dict(labels_reduce=2, scale_factor=0.5)),
-        "one_tree": (one, one_tables,
-                     dict(labels_reduce=1, write_all_eligible=False)),
-    }
+    """B1 against plain in five cases on the golden depth frames
+    (``kernel_bench.b1_cases``)."""
+    depth, cases = kb.b1_cases(model, dev)
     res = {}
-    for name, (flat, tables, kw) in cases.items():
+    for name, (flat, kw) in cases.items():
         got = B1(depth, flat, **kw)
-        want = forest_eval.evaluate_forest(depth, tables, **kw)
+        want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
+        tables = PackedForest.from_flat(flat).tables()
         torch.cuda.synchronize()
         bound_ms, bound_by = kb.bound(*kb.forest_work(depth, flat, **kw))
         res[name] = dict(
@@ -452,23 +439,60 @@ def phase_b1(model, dev):
     return res
 
 
+def train_sets(intrin):
+    d_tr, l_tr = kb.hand_frames(intrin, range(3000, 3000 + TRAIN_FRAMES))
+    d_te, l_te = kb.hand_frames(intrin, range(3100, 3100 + TEST_FRAMES))
+    return (ArrayDataset(d_tr, l_tr, CLASSES, images_per_block=4),
+            ArrayDataset(d_te, l_te, CLASSES), l_te)
+
+
+def train_d16(train, test, dev, log):
+    return train_forest(
+        train, test, num_random_features=128, proposals_per_block=64,
+        images_per_block=4, max_tree_depth=16, trees_in_forest=2,
+        trees_to_try=3, rng=np.random.default_rng(13), device=dev, log=log)
+
+
+def level_kernel_ms(prof, needle, path):
+    """Per ``train level N`` range of a profiled trainer: (launches, device
+    ms) of the kernels whose name holds ``needle``, each kernel put in the
+    level whose range holds its launch (the runtime call of the same
+    correlation id), from the chrome trace written to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    levels = sorted((e["ts"], e["ts"] + e["dur"], int(e["name"].split()[-1]))
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("train level "))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel" or needle not in e.get("name", ""):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        lv = next((l for a, b, l in levels if ts is not None and a <= ts <= b), None)
+        n, ms = out.get(lv, (0, 0.0))
+        out[lv] = (n + 1, ms + e["dur"] / 1e3)
+    return {str(k): [n, ms] for k, (n, ms) in
+            sorted(out.items(), key=lambda t: (t[0] is None, t[0] or 0))}
+
+
 def phase_train(intrin, dev, smi):
-    """train_forest at the flagship fine layer's width on the card."""
-    d_tr, l_tr = hand_frames(intrin, range(3000, 3000 + TRAIN_FRAMES))
-    d_te, l_te = hand_frames(intrin, range(3100, 3100 + TEST_FRAMES))
-    train = ArrayDataset(d_tr, l_tr, CLASSES, images_per_block=4)
-    test = ArrayDataset(d_te, l_te, CLASSES)
+    """train_forest at the flagship fine layer's width on the card; then the
+    same run again with its second candidate tree (training and scoring)
+    under torch.profiler, for B4's and B1's device time in place."""
+    train, test, l_te = train_sets(intrin)
     counts = np.bincount(l_te.ravel(), minlength=CLASSES)[1:]
     majority = float(counts.max() / counts.sum())
     stamps = []
     B1.launches = B4.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    forest = train_forest(
-        train, test, num_random_features=128, proposals_per_block=64,
-        images_per_block=4, max_tree_depth=16, trees_in_forest=2,
-        trees_to_try=3, rng=np.random.default_rng(13), device=dev,
-        log=lambda msg: stamps.append((time.perf_counter(), msg)))
+    forest = train_d16(train, test, dev,
+                       lambda msg: stamps.append((time.perf_counter(), msg)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = (B4.launches, B1.launches)
@@ -479,12 +503,42 @@ def phase_train(intrin, dev, smi):
     levels = [int(np.floor(np.log2(np.flatnonzero(u).max() + 1))) + 1
               for u in used]
     pct = forest.pct_match
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    state = {}
+
+    def window(msg):                    # candidate 2: its tree and its score
+        if msg.startswith("training candidate tree 2/"):
+            torch.cuda.synchronize()
+            prof.start()
+            state["on"] = time.perf_counter()
+        elif "on" in state and msg.lstrip().startswith("pct. matching"):
+            torch.cuda.synchronize()
+            state["wall_ms"] = (time.perf_counter() - state.pop("on")) * 1e3
+            prof.stop()
+
+    again = train_d16(train, test, dev, window)
+    in_place = {}
+    for name, needle in (("b4", "train_feature_bits_kernel"),
+                         ("b1", "evaluate_forest_kernel")):
+        n, ms = kernel_device_ms(prof, needle)
+        in_place[name] = dict(launches=n, device_ms_per_candidate_tree=(
+            n * ms if n else 0.0), device_ms_per_launch=ms)
+    in_place["window"] = device_profile(prof, 1, state["wall_ms"],
+                                        ("train level", "finalize"))
+    in_place["b4_per_level"] = level_kernel_ms(
+        prof, "train_feature_bits_kernel",
+        os.path.join(HERE, "build", f"train_trace_{os.getpid()}.json"))
     say("train_path", card=smi, train_frames=TRAIN_FRAMES,
         test_frames=TEST_FRAMES, depth=16, classes=CLASSES, proposals=128,
         seconds=seconds, seconds_per_candidate_tree=per_tree,
         levels_reached=levels, pct_match=pct, majority_share=majority,
+        pct_match_expected=PCT_MATCH_D16, pct_match_again=again.pct_match,
         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
         b4_launches=launches[0], b1_launches=launches[1],
+        profiled_candidate_tree=in_place,
         forest_shape=list(forest.data.shape))
     if min(launches) < 1:
         raise AssertionError(f"train path launches (B4, B1) = {launches}")
@@ -492,13 +546,18 @@ def phase_train(intrin, dev, smi):
         raise AssertionError(f"forest shape {forest.data.shape}")
     if not (np.isfinite(pct) and pct > majority):
         raise AssertionError(f"pct_match {pct} vs majority share {majority}")
+    if pct != PCT_MATCH_D16 or again.data.tobytes() != forest.data.tobytes():
+        raise AssertionError(f"pct_match {pct} (again {again.pct_match}), "
+                             f"want {PCT_MATCH_D16}")
+    if min(in_place["b4"]["launches"], in_place["b1"]["launches"]) < 1:
+        raise AssertionError(f"profiled candidate tree: {in_place}")
     return launches
 
 
 def reduced_case(intrin):
     """2 train + 1 test 848x480 frames, D=8, 64 proposals in one block, one
     candidate tree."""
-    d, l = hand_frames(intrin, range(3200, 3203))
+    d, l = kb.hand_frames(intrin, range(3200, 3203))
     cfg = dict(num_random_features=64, proposals_per_block=64,
                max_tree_depth=8, trees_in_forest=1, trees_to_try=1,
                log=lambda *a: None)

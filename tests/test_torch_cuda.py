@@ -14,9 +14,11 @@ import torch
 
 import fixtures
 
+from beats3d_tpu_torch import kernel_bench
 from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.ops import (forest_eval_cuda, points, preproc_cuda,
-                                   train_features, train_features_cuda)
+from beats3d_tpu_torch.ops import (cuda_lib, forest_eval_cuda, points,
+                                   preproc_cuda, train_features,
+                                   train_features_cuda)
 from beats3d_tpu_torch.train.proposals import make_random_features
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -292,6 +294,135 @@ def test_train_bits_kernel_rejects_bad_input(rng_np, cuda_dev):
         k(depth, props.cpu())
     with pytest.raises(ValueError):
         k(depth, props, active.to(torch.int32))
+
+
+def _b4_same_as_plain(depth, props, active):
+    k = train_features_cuda.train_feature_bits_cuda
+    before = k.launches
+    got = k(depth, props, active)
+    want = train_features.train_feature_bits_plain(depth, props, active)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64, 65, 2048])
+def test_train_bits_kernel_proposal_counts(rng_np, cuda_dev, p):
+    """P = 1 to 2048 (words partly used, 64 words), W not a multiple of 32
+    and H not of 8, every pixel and a random mask."""
+    depth, props, _ = _b4_inputs(rng_np, cuda_dev, p)
+    depth = depth[:2, :37, :69].contiguous()
+    active = torch.as_tensor(rng_np.random(depth.shape) < 0.5).to(cuda_dev)
+    for act in (None, active):
+        words = _b4_same_as_plain(depth, props, act)
+        assert words.any()
+
+
+@pytest.mark.cuda
+def test_train_bits_kernel_masks(rng_np, cuda_dev):
+    """No active pixel; one; only the ragged last segment of each row (x >=
+    96 of 100) or only its last column; a 1 % mask."""
+    depth, props, _ = _b4_inputs(rng_np, cuda_dev, 64)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 40, 100))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    none = torch.zeros(depth.shape, dtype=torch.bool, device=cuda_dev)
+    assert not _b4_same_as_plain(depth, props, none).any()
+    one = none.clone()
+    one[1, 17, 63] = True
+    words = _b4_same_as_plain(depth, props, one)
+    assert words[1, :, 17, 63].any() and not np.delete(
+        words[1].reshape(2, -1), 17 * 100 + 63, axis=1).any()
+    edge = none.clone()
+    edge[:, :, 96:] = True
+    _b4_same_as_plain(depth, props, edge)
+    edge = none.clone()
+    edge[:, :, -1] = True
+    _b4_same_as_plain(depth, props, edge)
+    sparse = torch.as_tensor(rng_np.random(depth.shape) < 0.01).to(cuda_dev)
+    _b4_same_as_plain(depth, props, sparse)
+
+
+@pytest.mark.cuda
+def test_train_bits_kernel_division_edge(cuda_dev):
+    """Every centre depth 1..65534 with offsets that are multiples of many
+    depths or their float32 neighbours (kernel_bench.division_edge)."""
+    depth, props = kernel_bench.division_edge(h=137, w=483)
+    words = _b4_same_as_plain(torch.as_tensor(depth).to(cuda_dev),
+                              torch.as_tensor(props).to(cuda_dev), None)
+    assert words.any()
+
+
+def _deep_forest(rng_np, trees, levels, classes, deep_walk=False):
+    """A random forest whose walks reach the deep levels (few early leaves);
+    ``deep_walk``: some last-level sides still descend."""
+    flat = fixtures.random_forest_flat(rng_np, trees, levels, classes,
+                                       leaf_prob=0.05, off_mag=400.0)
+    if deep_walk:
+        last = flat[:, 2 ** (levels - 1) - 1:, 5]
+        last[rng_np.random(last.shape) < 0.2] = -1.0
+    return flat
+
+
+def _b1_same_as_plain(depth, flat, **kw):
+    k = forest_eval_cuda.evaluate_forest_cuda
+    before = k.launches
+    got = k(depth, flat, **kw)
+    want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trees,levels,classes,r,scale,filtered,write_all,n", [
+    (1, 16, 7, 1, 1.0, False, False, 1), (2, 16, 7, 1, 1.0, False, True, 3),
+    (3, 6, 1, 2, 0.5, True, True, 1), (4, 8, 8, 2, 1.0, True, False, 3),
+    (5, 5, 9, 1, 2.0, False, True, 1), (16, 4, 16, 2, 1.0, False, False, 3),
+    (1, 1, 16, 1, 1.0, False, True, 1), (4, 1, 7, 2, 0.25, True, False, 1)])
+def test_forest_kernel_trees_classes_levels(rng_np, cuda_dev, trees, levels,
+                                            classes, r, scale, filtered,
+                                            write_all, n):
+    """B1 against plain: T = 1-5 and 16, C = 1, 7, 8, 9, 16, D = 1 to 16
+    (walks that end after the last level included), filter, both
+    write_all_eligible, r = 1, 2, scale != 1, N = 1, 3; widths not
+    multiples of the pixels per warp."""
+    flat = torch.as_tensor(_deep_forest(rng_np, trees, levels, classes,
+                                        deep_walk=levels > 1))
+    flat = flat.to(cuda_dev).contiguous()
+    h, w = 38, 94
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, n, h, w))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    kw = dict(labels_reduce=r, scale_factor=scale, write_all_eligible=write_all)
+    if filtered:
+        filt = rng_np.integers(0, 3, size=(n, h // r, w // r))
+        kw.update(filter_images=torch.as_tensor(filt).to(cuda_dev).to(torch.int32),
+                  filter_class=1)
+    labels = _b1_same_as_plain(depth, flat, **kw)
+    assert (labels != 65535).any()
+
+
+@pytest.mark.cuda
+def test_forest_kernel_every_lane_grouping(rng_np, cuda_dev):
+    """Every lane grouping gives the plain labels, with 1, 3 and 4 trees
+    (a lane then walks several trees, or none), walks that end after the
+    last level, and both write_all_eligible."""
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 30, 70))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    lib = cuda_lib.library()
+    for trees in (1, 3, 4):
+        flat = torch.as_tensor(_deep_forest(rng_np, trees, 9, 7, deep_walk=True))
+        flat = flat.to(cuda_dev).contiguous()
+        for write_all in (True, False):
+            kw = dict(labels_reduce=1, write_all_eligible=write_all)
+            want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
+            for lanes in (1, 2, 4, 8, 16):
+                run = kernel_bench.forest_runner(lib, lanes=lanes)
+                np.testing.assert_array_equal(
+                    run(depth, flat, **kw).cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda
