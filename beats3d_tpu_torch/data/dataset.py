@@ -133,6 +133,20 @@ class DatasetConfig:
     def images_shape(self) -> Tuple[int, int, int]:
         return (self.num_images, self.img_dims[1], self.img_dims[0])
 
+    def convert_colors_to_ids(self, labels_color: np.ndarray) -> np.ndarray:
+        """(H, W, 4) RGBA label render -> (H, W) uint16 class ids; every
+        pixel must carry a class colour."""
+        w, h = self.img_dims
+        ids = np.zeros((h, w), dtype=np.uint16)
+        count = 0
+        for class_id, color in self.id_to_color.items():
+            hit = np.all(labels_color == color, axis=2)
+            ids[hit] = class_id
+            count += int(np.sum(hit))
+        if count != w * h:
+            raise ValueError("unlabelled pixels in labels image")
+        return ids
+
     def convert_ids_to_colors(self, labels_ids: np.ndarray) -> np.ndarray:
         """(N, H, W) class ids -> (N, H, W, 4) RGBA renders."""
         n, h, w = labels_ids.shape

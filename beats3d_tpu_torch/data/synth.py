@@ -1,5 +1,5 @@
-# Copied from beats3d_tpu/data/synth.py (the rigged=False path); the splat
-# renderer it calls is re-implemented in numpy below.
+# Copied from beats3d_tpu/data/synth.py; the splat renderer it calls is
+# re-implemented in numpy below (the same bits as ops/render.py).
 """Articulated synthetic hand scenes — the framework's test/bench geometry.
 
 The reference's training data is skin-paint-labeled articulated hands
@@ -316,12 +316,14 @@ def compose(table_z, layers):
 
 def articulated_scene(intrin, rng, two_hands=False, flex_scale=1.0,
                       height_range=(260.0, 420.0), detail=0.0,
-                      noise_scale=0.0):
+                      noise_scale=0.0, rigged=False):
     """A full-res articulated-hand frame over a tilted table.
 
     One random-pose right hand (``two_hands=False``, the training
     generator), or a right + mirrored-left pair placed left/right like the
     instrument's operating pose (``two_hands=True``, the bench scene).
+    ``rigged=True`` swaps the point-primitive hand for the skinned
+    21-bone rig with an opposable thumb (:mod:`.rigged`).
     Returns (depth uint16, color uint8)."""
     h, w = intrin.height, intrin.width
     tz = table_depth(intrin)
@@ -334,7 +336,13 @@ def articulated_scene(intrin, rng, two_hands=False, flex_scale=1.0,
     else:
         placements = [(rng.uniform(0.28, 0.72) * w, False)]
     for cx, mirror in placements:
-        local, cols = hand_cloud(rng, flex_scale=flex_scale, detail=detail)
+        if rigged:
+            from .rigged import rigged_hand_cloud
+            local, cols = rigged_hand_cloud(
+                rng, flex_scale=flex_scale, detail=detail)
+        else:
+            local, cols = hand_cloud(rng, flex_scale=flex_scale,
+                                     detail=detail)
         cy = rng.uniform(0.38, 0.72) * h
         height = rng.uniform(*height_range)
         rot = rng.uniform(-0.45, 0.45)

@@ -102,6 +102,25 @@ def hand_crops(pipe, frames, plane):
     return torch.cat(crops).contiguous()
 
 
+class HostStreamPlane(plane_ops.CalibratedPlane):
+    """A CalibratedPlane whose candidates' uniforms are drawn on the CPU and
+    copied to its device, so that a card run and a CPU run calibrate from
+    the same stream (``chip_smoke.py``'s datagen card-against-CPU phase and
+    the card tests)."""
+
+    def __init__(self, num_random_guesses, threshold, device, seed=0):
+        super().__init__(num_random_guesses, threshold, seed=seed,
+                         device="cpu")
+        self.device = torch.device(device)
+
+    def make(self, pts, start_mat=None):
+        u = torch.rand((self.num_random_guesses, 32), generator=self._gen,
+                       dtype=torch.float32).to(self.device)
+        self.plane = plane_ops.calibrate_plane(
+            u, pts, float(self.plane_z_outlier_threshold), start_mat=start_mat)
+        return self.plane
+
+
 def bench_inputs(dev) -> BenchInputs:
     intrin = CameraIntrinsics.d415()
     scenes = np.stack([

@@ -23,12 +23,30 @@ CHUNK = 512
 
 
 def _norm(v):
-    """v / |v| through rsqrt plus one Newton step, as the JAX package does
-    (its TPU rsqrt is approximate; the step keeps the two in agreement)."""
-    s = (v * v).sum(dim=-1, keepdim=True)
-    r = torch.rsqrt(s)
+    """v / |v| through 1 / sqrt plus one Newton step, as the JAX package
+    does with its rsqrt (approximate on the TPU; the step keeps the two in
+    agreement).  Every operation rounds as IEEE float32 does, so the card
+    and the CPU build the same candidates: the square root and the
+    reciprocal are taken in float64 and rounded once to float32, which
+    gives the correctly rounded float32 results (53 >= 2 * 24 + 2 bits);
+    PyTorch's float32 sqrt is not correctly rounded, on the card or on
+    the CPU."""
+    s = (v[..., 0:1] * v[..., 0:1] + v[..., 1:2] * v[..., 1:2]) \
+        + v[..., 2:3] * v[..., 2:3]
+    root = torch.sqrt(s.to(torch.float64)).to(torch.float32).to(torch.float64)
+    r = (torch.ones_like(root) / root).to(torch.float32)
     r = r * (1.5 - 0.5 * s * r * r)
     return v * r
+
+
+def _cross(a, b):
+    """a x b over the last dimension, products and differences rounded one
+    by one (``torch.linalg.cross`` may fuse them on one device and not on
+    the other)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
 
 
 def make_plane_candidates(uniforms, pts):
@@ -57,14 +75,14 @@ def make_plane_candidates(uniforms, pts):
 
     v0 = _norm(p1 - p0)
     v1 = _norm(p2 - p0)
-    z_axis = _norm(torch.linalg.cross(v0, v1, dim=-1))
+    z_axis = _norm(_cross(v0, v1))
     # The camera (origin) lands on the negative-z side of the plane, so hands
     # above the table survive the z <= -threshold band.
     dot = (z_axis[:, 0] * p0[:, 0] + z_axis[:, 1] * p0[:, 1]) + z_axis[:, 2] * p0[:, 2]
     flip = torch.where(dot < 0.0, -1.0, 1.0)[:, None]
     z_axis = z_axis * flip
     x_axis = v0
-    y_axis = _norm(torch.linalg.cross(z_axis, x_axis, dim=-1))
+    y_axis = _norm(_cross(z_axis, x_axis))
     rot = torch.stack([x_axis, y_axis, z_axis], dim=1)   # (N, 3, 3) rows = axes
     t = -((rot[..., 0] * p0[:, None, 0] + rot[..., 1] * p0[:, None, 1])
           + rot[..., 2] * p0[:, None, 2])
@@ -81,17 +99,26 @@ def make_plane_candidates(uniforms, pts):
 
 
 def count_inliers(pts, candidates, threshold, chunk: int = CHUNK):
-    """Inliers per candidate: points with w == 1 and |plane z| < threshold.
-    One (points x chunk) full-float32 product per chunk of candidates."""
+    """Inliers per candidate: points with w == 1 and |plane z| < threshold,
+    over (points x chunk) candidates at a time.  z = fma(z, m2, fma(y, m1,
+    x*m0)) + m3, each multiply-add rounded once to float32 (emulated in
+    float64, where the products are exact): the JAX package's dot on the
+    CPU computes exactly this, and elementwise the card counts what the
+    CPU counts (a matrix product's summation order is the library's)."""
     pts_flat = pts.reshape(-1, 4)
     valid = pts_flat[:, 3] == 1.0
-    xyz = pts_flat[:, :3]
+    x = pts_flat[:, 0:1]
+    y, z = (pts_flat[:, i:i + 1].to(torch.float64) for i in (1, 2))
     zrow = candidates[:, 2, :]
     counts = []
     for c0 in range(0, zrow.shape[0], chunk):
-        zr = zrow[c0:c0 + chunk]
-        z = torch.matmul(xyz, zr[:, :3].T) + zr[:, 3][None, :]
-        inl = (z.abs() < threshold) & valid[:, None]
+        m = zrow[c0:c0 + chunk]
+        m64 = m.to(torch.float64)
+        pz = x * m[:, 0]
+        pz = (y * m64[:, 1] + pz.to(torch.float64)).to(torch.float32)
+        pz = (z * m64[:, 2] + pz.to(torch.float64)).to(torch.float32)
+        pz = pz + m[:, 3]
+        inl = (pz.abs() < threshold) & valid[:, None]
         counts.append(inl.sum(dim=0))
     return torch.cat(counts)
 

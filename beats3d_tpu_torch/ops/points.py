@@ -46,6 +46,50 @@ def deproject_points(depth, pp, focal):
     return torch.where((d > 0)[..., None], pts, 0.0)
 
 
+def depths_from_points(pts):
+    """Point cloud -> depth image: z where w > 0, else 0.  z converts as
+    the JAX package's float -> uint16 cast does on the CPU: truncated,
+    saturated to [0, 65535], NaN -> 0, on every device.
+    (..., 4) float32 -> (...) uint16."""
+    z = torch.nan_to_num(pts[..., 2], nan=0.0).clamp(0.0, float(MAX_UINT16))
+    z = z.to(torch.int32)
+    return torch.where(pts[..., 3] > 0.0, z, 0).to(torch.uint16)
+
+
+def transform_points(pts, mat):
+    """Apply a 4x4 transform (new_p = M @ p) to the points with w == 1;
+    the others pass through.  Each row is summed as
+    (m0*p0 + m1*p1) + (m2*p2 + m3*p3), every product rounded to float32:
+    the order of the JAX package's einsum on the CPU, and one that the
+    card computes bit for bit alike (eager products and sums never fuse
+    into a multiply-add)."""
+    m = _f32(mat, pts.device)
+    prod = pts[..., None, :] * m                     # (..., i, j) = m_ij p_j
+    new = ((prod[..., 0] + prod[..., 1]) + (prod[..., 2] + prod[..., 3]))
+    return torch.where(pts[..., 3:4] == 1.0, new, pts)
+
+
+def remove_missing_3d_points_from_depth_image(pts, depth):
+    """Zero depth where the point was filtered away (w == 0)."""
+    return torch.where(pts[..., 3] == 0.0, 0, depth.to(torch.int32)).to(
+        depth.dtype)
+
+
+def setup_depth_image_for_forest(pts, depth):
+    """Depth 0 or a filtered point -> 65535."""
+    di = depth.to(torch.int32)
+    missing = (di == 0) | (pts[..., 3] == 0.0)
+    return torch.where(missing, MAX_UINT16, di).to(depth.dtype)
+
+
+def filter_points_by_plane(pts, threshold):
+    """Zero out plane-space points with w == 1 and z > -threshold (at or
+    below the table band)."""
+    t = float(np.float32(threshold))
+    cut = (pts[..., 3] == 1.0) & (pts[..., 2] > -t)
+    return torch.where(cut[..., None], 0.0, pts)
+
+
 def plane_band_depth(depth, mat, pp, focal, threshold):
     """Fused deproject -> plane transform -> band filter -> depth: keep a
     pixel when d > 0 and its plane-space z is not above -threshold, with

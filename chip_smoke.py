@@ -27,7 +27,17 @@ Then drives the port's paths:
 * the scripts/ Mosaic probes' counterparts (P1-P12,
   ``python -m beats3d_tpu_torch.probes``): every script's cost table at the
   script's shapes, then every mode at each of its counts held against the
-  plain versions (``mm_*`` must raise).
+  plain versions (``mm_*`` must raise);
+* datagen (``LiveDataConvert``) on the flagship training set's recipe at
+  848x480, 24 articulated frames with the flagship's coarse layer as the
+  mask model (B1 once per frame), timed per frame and profiled over 4
+  frames, then a D=8 tree trained on its first 20 frames (B4, B1) and
+  scored on the other 4; frames 0-3 again on the card and on the CPU from
+  the same plane uniforms and seeds (equal bit for bit, and a second card
+  run equal to the first);
+* pose fit: ``fit_cylinder`` at 848x480 for 200 iterations on the card and
+  on the CPU (the same costs and accepted poses), profiled, then
+  apps/pose_fit_torch.py on the synthetic source (B1 once).
 
 Each path checks that its kernels ran on it and that the outputs are right.
 Any failure raises (exit code != 0).
@@ -56,15 +66,20 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import contextlib  # noqa: E402
+import importlib.util  # noqa: E402
+import io  # noqa: E402
+
+from beats3d_tpu_torch.data import datagen  # noqa: E402
 from beats3d_tpu_torch.data.blocks import CompressedDataset  # noqa: E402
 from beats3d_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
+from beats3d_tpu_torch.data.synth import articulated_scene  # noqa: E402
 from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
-from beats3d_tpu_torch.models.forest import PackedForest  # noqa: E402
+from beats3d_tpu_torch.models.forest import DecisionForest, PackedForest  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
-    cuda_lib, forest_eval, forest_eval_cuda, preproc_cuda, train_features,
-    train_features_cuda,
+    cuda_lib, forest_eval, forest_eval_cuda, posefit, preproc_cuda, train_features, train_features_cuda,
 )
 from beats3d_tpu_torch.probes import __main__ as probes_main  # noqa: E402
 from beats3d_tpu_torch.probes import tiles as probe_tiles  # noqa: E402
@@ -73,6 +88,7 @@ from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp  # noqa: E402
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
 from beats3d_tpu_torch.train import train_forest  # noqa: E402
+from beats3d_tpu_torch.utils.intrinsics import CameraIntrinsics  # noqa: E402
 from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
 
 FLAGSHIP = kb.FLAGSHIP
@@ -88,6 +104,17 @@ TRAIN_FRAMES, TEST_FRAMES = 16, 4
 # train_path's pct_match on this data and seed: the value every earlier
 # version of the kernels gave (the trees do not depend on the kernels)
 PCT_MATCH_D16 = 0.8482417230045693
+# datagen: the flagship training set's recipe (scripts/flagship_v2.py), with
+# the flagship's coarse layer as the mask model
+DATAGEN_CFG = dict(num_colors=6, color_em_tries=6, color_em_iterations=24,
+                   plane_candidates=8192, plane_z_threshold=40.0,
+                   scale_variance=0.04, gaussian_noise=1.5, max_images=24,
+                   mask_label=1)
+DATAGEN_TRAIN, DATAGEN_TEST = 20, 4      # frames from seeds 1001 and 9901
+DATAGEN_PROFILED = 4
+DATAGEN_CLASSES = 7                      # background + 6 palette colours
+CARD_VS_CPU_FRAMES = 4                   # 0-2 as rendered, 3 augmented
+POSEFIT_ITERATIONS, POSEFIT_PROFILED = 200, 50
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
 # source, the pallas_call it replaces, operations per element of x per count
 # step of that case: the bound's operation count)
@@ -709,6 +736,279 @@ def entry(name, source, replaces, launches, res):
             **{k: res[k] for k in keys}}
 
 
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def datagen_scenes(intrin, n_train=DATAGEN_TRAIN, n_test=DATAGEN_TEST):
+    """The recipe's frames: single right hands from seed 1001, then unseen
+    poses from seed 9901, each with its (depth, colour) timestamps."""
+    rngs = (np.random.default_rng(1001), np.random.default_rng(9901))
+    out = []
+    for t in range(n_train + n_test):
+        depth, color = articulated_scene(intrin, rngs[t >= n_train],
+                                         two_hands=False)
+        out.append((depth, color, t / 90.0, t / 90.0 + 0.002))
+    return out
+
+
+def datagen_converter(intrin, dev, host_stream=False):
+    """LiveDataConvert on the recipe with the mask model, converter seed 3;
+    its frames are collected in memory (depth, labels, snapped colours)
+    instead of PNGs, which need Pillow."""
+    out = os.path.join(HERE, "build", f"datagen_{os.getpid()}")
+    conv = datagen.LiveDataConvert(
+        out, intrin, datagen.DatagenConfig(**DATAGEN_CFG),
+        mask_model=DecisionForest.load(os.path.join(FLAGSHIP, "m0.npy")),
+        rng=np.random.default_rng(3), log=lambda *a: None, device=dev)
+    if host_stream:
+        conv.plane = kb.HostStreamPlane(DATAGEN_CFG["plane_candidates"],
+                                     DATAGEN_CFG["plane_z_threshold"], dev)
+    written = []
+    conv._save = lambda d, l, s: written.append((d, l, s))
+    return conv, written
+
+
+def datagen_run(conv, scenes, dev, timed=False):
+    """Feed ``scenes`` to ``conv``; with ``timed``, the host wall per frame
+    (synchronised) and the palette fit's seconds."""
+    walls, em = [], {}
+    fit = datagen.make_color_mapping
+
+    def timed_fit(*args, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fit(*args, **kw)
+        sync(dev)
+        em["seconds"] = time.perf_counter() - t0
+        return out
+
+    if timed:
+        datagen.make_color_mapping = timed_fit
+    try:
+        for depth, color, dts, cts in scenes:
+            sync(dev)
+            t0 = time.perf_counter()
+            conv.process_frame(depth, color, dts, cts)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        datagen.make_color_mapping = fit
+    return walls, em.get("seconds")
+
+
+def datagen_train(written, dev):
+    """A D=8 tree trained on the first DATAGEN_TRAIN frames (depth as the
+    PNGs hold it: missing = 65535) and scored on the rest."""
+    depth = np.stack([np.where(d == 0, 65535, d) for d, _, _ in written])
+    labels = np.stack([l for _, l, _ in written])
+    n = DATAGEN_TRAIN
+    train = ArrayDataset(depth[:n], labels[:n], DATAGEN_CLASSES,
+                         images_per_block=4)
+    test = ArrayDataset(depth[n:], labels[n:], DATAGEN_CLASSES)
+    counts = np.bincount(labels[n:].ravel(), minlength=DATAGEN_CLASSES)[1:]
+    forest = train_forest(
+        train, test, num_random_features=64, proposals_per_block=64,
+        images_per_block=4, max_tree_depth=8, trees_in_forest=1,
+        trees_to_try=1, rng=np.random.default_rng(23), device=dev,
+        log=lambda *a: None)
+    return forest, float(counts.max() / max(1, counts.sum()))
+
+
+def phase_datagen_path(dev, smi, scenes, intrin):
+    """The flagship's training-set recipe on the card: B1 once per frame,
+    the palette fit's time, the host wall per frame over frames 1-23, a
+    profiler window over 4 steady frames of a second run (which must write
+    what the first wrote), then a D=8 tree trained on the frames."""
+    conv, written = datagen_converter(intrin, dev)
+    B1.launches = 0
+    walls, em_s = datagen_run(conv, scenes, dev, timed=True)
+    launches = B1.launches
+    palette = conv.palette.copy()
+    conv.finish()
+
+    again, written2 = datagen_converter(intrin, dev)
+    lo = DATAGEN_PROFILED
+    datagen_run(again, scenes[:lo], dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        datagen_run(again, scenes[lo:2 * lo], dev)
+        wall = time.perf_counter() - t0
+    profiled = device_profile(prof, lo, wall * 1e3 / lo)
+    n_b1, b1_ms = kernel_device_ms(prof, "evaluate_forest_kernel")
+    profiled["b1"] = dict(launches_per_frame=n_b1 / lo,
+                          device_ms_per_launch=b1_ms)
+    same = all(all(np.array_equal(a, b) for a, b in zip(x, y))
+               for x, y in zip(written, written2))
+
+    B4.launches = B1.launches = 0
+    t0 = time.perf_counter()
+    forest, majority = datagen_train(written, dev)
+    train_s = time.perf_counter() - t0
+    train_launches = (B4.launches, B1.launches)
+    labelled = [int((l > 0).sum()) for _, l, _ in written]
+    say("datagen_path", card=smi, frames=len(written), shape=[intrin.height,
+        intrin.width], b1_launches=launches, palette=palette.tolist(),
+        em_palette_seconds=em_s,
+        host_ms_per_frame=float(np.mean(walls[1:]) * 1e3),
+        host_ms_frames_1_23=[round(w * 1e3, 3) for w in walls[1:]],
+        frame0_ms=walls[0] * 1e3, profiled_frames=profiled,
+        second_run_equal=same, labelled_pixels=labelled,
+        train=dict(depth=8, train_frames=DATAGEN_TRAIN,
+                   test_frames=DATAGEN_TEST, seconds=train_s,
+                   b4_launches=train_launches[0],
+                   b1_launches=train_launches[1],
+                   pct_match=forest.pct_match, majority_share=majority))
+    if launches != len(scenes) or len(written) != len(scenes):
+        raise AssertionError(f"datagen: {len(written)} frames, B1 launched "
+                             f"{launches} times, want {len(scenes)}")
+    if profiled["b1"]["launches_per_frame"] != 1 or not same:
+        raise AssertionError(f"datagen: profiled {profiled['b1']}, second "
+                             f"run equal: {same}")
+    if palette.shape != (6, 3) or min(labelled) == 0:
+        raise AssertionError(f"datagen: palette {palette.tolist()}, "
+                             f"labelled pixels {labelled}")
+    if min(train_launches) < 1 or not forest.pct_match > majority:
+        raise AssertionError(f"datagen training: launches {train_launches}, "
+                             f"pct_match {forest.pct_match} vs majority "
+                             f"{majority}")
+    return launches
+
+
+def phase_datagen_card_vs_cpu(dev, scenes, intrin):
+    """Frames 0-3 of the recipe on the card (twice) and on the CPU, from
+    the same plane uniforms and numpy seeds: depth, labels, snapped colours
+    and palette equal bit for bit; B1 equal to its plain version on frame
+    0's forest input."""
+    runs, frame0 = {}, {}
+    for name, device in (("card", dev), ("card_again", dev), ("cpu", "cpu")):
+        conv, written = datagen_converter(intrin, device, host_stream=True)
+        t0 = time.perf_counter()
+        datagen_run(conv, scenes[:CARD_VS_CPU_FRAMES], device)
+        runs[name] = (written, conv.palette, time.perf_counter() - t0)
+    mism = {}
+    for other in ("card_again", "cpu"):
+        mism[other] = [
+            [int((a != b).sum()) for a, b in zip(x, y)]
+            for x, y in zip(runs["card"][0], runs[other][0])]
+        mism[other + "_palette"] = int(
+            (runs["card"][1] != runs[other][1]).sum())
+    d_forest = torch.as_tensor(np.where(runs["card"][0][0][0] == 0, 65535,
+                                        runs["card"][0][0][0]).astype(np.int32))
+    d_forest = d_forest[None].to(dev).contiguous()
+    flat = torch.as_tensor(np.load(os.path.join(FLAGSHIP, "m0.npy")),
+                           device=dev)
+    got = B1(d_forest, flat)
+    want = forest_eval_cuda.evaluate_forest_plain(d_forest, flat)
+    sync(dev)
+    b1_mism = int((got != want).sum())
+    say("datagen_card_vs_cpu", frames=CARD_VS_CPU_FRAMES,
+        mismatches_depth_labels_snapped=mism, b1_vs_plain_frame0=b1_mism,
+        seconds={k: v[2] for k, v in runs.items()})
+    bad = [k for k, v in mism.items()
+           if (v if isinstance(v, int) else sum(map(sum, v)))]
+    if bad or b1_mism or len(runs["cpu"][0]) != CARD_VS_CPU_FRAMES:
+        raise AssertionError(f"datagen card vs CPU: {mism}, B1 vs plain "
+                             f"{b1_mism}")
+
+
+def cylinder_case(intrin, dev):
+    """tests/test_render.py's pose-fit geometry at ``intrin``'s size: the
+    observed depth of a known cylinder (rendered on ``dev`` and on the CPU,
+    which must agree), its labels, the plane and the displaced start."""
+    true = posefit.CylinderTform()
+    true.t[:] = [0.0, 0.0, -400.0]
+    true.s[:] = [150.0, 150.0, 600.0]
+    plane_mat = np.eye(4, dtype=np.float32)
+    plane_mat[2, 3] = -2000.0
+    obj = (np.linalg.inv(plane_mat) @ true.get_tform()).astype(np.float32)
+    surface = posefit.cylinder_surface(64, 64)
+    shape = (intrin.height, intrin.width)
+    obs = [posefit.render_cylinder_depth(
+        torch.as_tensor(surface, device=d), obj, intrin.pp, intrin.fx,
+        shape).cpu().numpy() for d in (dev, "cpu")]
+    if (obs[0] != obs[1]).any():
+        raise AssertionError("cylinder render: card and CPU differ")
+    init = true.copy()
+    init.t[0] += 60.0
+    return obs[0], (obs[0] > 0).astype(np.uint16), plane_mat, init
+
+
+def fit_run(case, intrin, dev, iterations):
+    obs, labels, plane_mat, init = case
+    poses = []
+    sync(dev)
+    t0 = time.perf_counter()
+    _, cost, history = posefit.fit_cylinder(
+        obs, labels, plane_mat, init.copy(), intrin.pp, intrin.fx,
+        iterations=iterations, rng=np.random.default_rng(0), device=dev,
+        on_improve=lambda i, c, tf: poses.append(i))
+    sync(dev)
+    return history, poses, time.perf_counter() - t0
+
+
+def load_app(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "apps", f"{name}.py"))
+    app = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(app)
+    return app
+
+
+def phase_posefit_path(dev, smi):
+    """fit_cylinder on tests/test_render.py's geometry at 848x480 on the
+    card and on the CPU (every cost within rtol 1e-5, the same accepted
+    iterations, the final cost below 0.8x the initial), a profiler window
+    over its first 50 iterations, then apps/pose_fit_torch.py on the
+    synthetic source with the flagship's coarse layer (B1 once)."""
+    intrin = CameraIntrinsics.d415()
+    case = cylinder_case(intrin, dev)
+    card = fit_run(case, intrin, dev, POSEFIT_ITERATIONS)
+    cpu = fit_run(case, intrin, "cpu", POSEFIT_ITERATIONS)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, wall = fit_run(case, intrin, dev, POSEFIT_PROFILED)
+    profiled = device_profile(prof, POSEFIT_PROFILED + 1,
+                              wall * 1e3 / (POSEFIT_PROFILED + 1))
+
+    B1.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        _, app_cost, app_history, _ = load_app("pose_fit_torch").main([
+            "-m", os.path.join(FLAGSHIP, "m0.npy"), "--synthetic",
+            "--plane_z_threshold", "40", "--seed", "0"])
+    sync(dev)
+    app_s = time.perf_counter() - t0
+    app_launches = B1.launches
+    hc, hp = np.asarray(card[0]), np.asarray(cpu[0])
+    rel = float(np.max(np.abs(hc - hp) / np.abs(hp)))
+    say("posefit_path", card=smi, shape=[intrin.height, intrin.width],
+        iterations=POSEFIT_ITERATIONS, initial_cost=card[0][0],
+        final_cost=card[0][-1], final_cost_cpu=cpu[0][-1],
+        accepted_iterations=card[1], accepted_equal=card[1] == cpu[1],
+        cost_max_rel_err=rel, card_ms_per_iteration=card[2] * 1e3 / (
+            POSEFIT_ITERATIONS + 1),
+        cpu_ms_per_iteration=cpu[2] * 1e3 / (POSEFIT_ITERATIONS + 1),
+        profiled_iterations=profiled, app_seconds=app_s,
+        app_b1_launches=app_launches, app_initial_cost=app_history[0],
+        app_final_cost=app_cost,
+        app_log_lines=len(log.getvalue().splitlines()))
+    if rel > 1e-5 or card[1] != cpu[1]:
+        raise AssertionError(f"pose fit card vs CPU: rel {rel}, accepted "
+                             f"{card[1]} vs {cpu[1]}")
+    if not card[0][-1] < 0.8 * card[0][0]:
+        raise AssertionError(f"pose fit: cost {card[0][0]} -> {card[0][-1]}")
+    if app_launches != 1 or not np.isfinite(app_cost):
+        raise AssertionError(f"pose_fit_torch: B1 launched {app_launches} "
+                             f"times, final cost {app_cost}")
+    return app_launches
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -735,6 +1035,11 @@ def main():
     tables, probe_launches = run("probes_path", phase_probes_path, smi)
     probe_res = run("probes_vs_plain", phase_probes_vs_plain, dev, tables,
                     probe_launches)
+    scenes = run("datagen_scenes", datagen_scenes, inp.intrin)
+    run("datagen_path", phase_datagen_path, dev, smi, scenes, inp.intrin)
+    run("datagen_card_vs_cpu", phase_datagen_card_vs_cpu, dev, scenes,
+        inp.intrin)
+    run("posefit_path", phase_posefit_path, dev, smi)
     kernels = [
         entry("evaluate_layered_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],

@@ -584,3 +584,135 @@ def test_probe_kernels_reject_bad_input(cuda_dev):
         try_opcost.run(x, x.cpu(), op="gather", k=1)
     with pytest.raises(ValueError):
         try_axis0.run(x, x, mode="axis0", reps=1)      # the grid is 64 tiles
+
+
+def _card_and_cpu(fn, dev, *arrays, **kw):
+    """fn on the card and on the CPU, on the same numpy inputs; the
+    outputs as numpy arrays."""
+    outs = []
+    for d in (dev, "cpu"):
+        out = fn(*[torch.as_tensor(a, device=d) for a in arrays], **kw)
+        outs.append(out if isinstance(out, tuple) else (out,))
+    torch.cuda.synchronize()
+    return [tuple(o.cpu().numpy() for o in out) for out in outs]
+
+
+@pytest.mark.cuda
+def test_render_card_matches_cpu(rng_np, cuda_dev):
+    """Transform, splat (the int32 scatter-min z-buffer), hole fill and the
+    pose cost at 848x480 on the card, bit for bit as on the CPU."""
+    from beats3d_tpu_torch.ops import render
+
+    h, w = 480, 848
+    pts = np.zeros((h, w, 4), np.float32)
+    pts[..., 0] = rng_np.uniform(-3000, 3000, (h, w))
+    pts[..., 1] = rng_np.uniform(-2000, 2000, (h, w))
+    pts[..., 2] = rng_np.choice(np.array([1000.0, 1000.5, 2600.25, 65535.0,
+                                          -3.0], np.float32), (h, w))
+    pts[..., 3] = rng_np.random((h, w)) < 0.95
+    colors = rng_np.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    mat = np.array([[1.02, 0.01, 0.003, 15.5], [-0.02, 0.98, 0.0, -7.25],
+                    [0.001, -0.002, 1.01, 40.0], [0, 0, 0, 1]], np.float32)
+    pp, fx = np.array([424.0, 240.0], np.float32), 425.0
+
+    def chain(p, c):
+        q = points.transform_points(p, mat)
+        d, col = render.splat_points(q, c, pp, fx)
+        d2, col2 = render.fill_holes(d, col)
+        cost = render.calc_image_cost(d2, d, (col2[..., 0] > 100), 1)
+        return q, d, col, d2, col2, cost
+
+    card, cpu = _card_and_cpu(chain, cuda_dev, pts, colors)
+    assert int((card[1] > 0).sum()) > 1000
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_colors_card_matches_cpu(rng_np, cuda_dev):
+    """Palette statistics and k-means on the card: int64 sums, so the same
+    bits as the CPU on every run (the costs are float32 sums, rtol 1e-6)."""
+    from beats3d_tpu_torch.ops import colors
+
+    img = rng_np.integers(0, 256, (480, 848, 3)).astype(np.uint8)
+    img[rng_np.random((480, 848)) < 0.5] = 0
+    init = rng_np.uniform(0, 255, (6, 3)).astype(np.float32)
+    pal8 = init.round().astype(np.uint8)
+    runs = [_card_and_cpu(colors.kmeans_palette_step, cuda_dev, img, init,
+                          num_iters=12) for _ in range(2)]
+    for card, cpu in runs:
+        np.testing.assert_array_equal(card[0], cpu[0])
+        np.testing.assert_array_equal(card[0], runs[0][0][0])
+        np.testing.assert_allclose(float(card[1]), float(cpu[1]), rtol=1e-6)
+    card, cpu = _card_and_cpu(colors.split_pixels_by_nearest_color, cuda_dev,
+                              img, pal8)
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_allclose(card[2], cpu[2], rtol=1e-6)
+    card, cpu = _card_and_cpu(colors.apply_point_mapping, cuda_dev, img, pal8)
+    np.testing.assert_array_equal(card[0], cpu[0])
+
+
+@pytest.mark.cuda
+def test_plane_card_matches_cpu(cuda_dev):
+    """RANSAC calibration from the same uniforms: the same candidates,
+    inlier counts and plane bit for bit on the card and the CPU."""
+    from beats3d_tpu_torch.data.synth import articulated_scene
+    from beats3d_tpu_torch.ops import plane
+    from beats3d_tpu_torch.utils import CameraIntrinsics
+
+    intrin = CameraIntrinsics.d415()
+    depth, _ = articulated_scene(intrin, np.random.default_rng(1001))
+    u = torch.rand((2048, 32), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for d in (cuda_dev, "cpu"):
+        pts = points.deproject_points(
+            torch.as_tensor(depth.astype(np.int32), device=d), intrin.pp,
+            intrin.fx)
+        cand = plane.make_plane_candidates(u.to(d), pts)
+        outs.append((cand.cpu(), plane.count_inliers(pts, cand, 40.0).cpu(),
+                     plane.calibrate_plane(u.to(d), pts, 40.0).cpu()))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+def test_datagen_card_matches_cpu(cuda_dev):
+    """LiveDataConvert at 424x240 with the flagship's coarse layer as the
+    mask model (B1 once per frame on the card), from the same plane
+    uniforms and seeds: the card writes the CPU's frames bit for bit,
+    frames 3-4 augmented."""
+    from beats3d_tpu_torch.data import datagen
+    from beats3d_tpu_torch.data.synth import articulated_scene
+    from beats3d_tpu_torch.models import DecisionForest
+    from beats3d_tpu_torch.utils import CameraIntrinsics
+
+    intrin = CameraIntrinsics.d415(424, 240)
+    rng = np.random.default_rng(1001)
+    scenes = [articulated_scene(intrin, rng) for _ in range(5)]
+    cfg = datagen.DatagenConfig(num_colors=6, color_em_tries=3,
+                                color_em_iterations=12, plane_candidates=2048,
+                                scale_variance=0.04, gaussian_noise=1.5,
+                                mask_label=1)
+    mask = DecisionForest.load(os.path.join(FLAGSHIP, "m0.npy"))
+    runs = []
+    for d in (cuda_dev, "cpu"):
+        conv = datagen.LiveDataConvert(
+            os.path.join(HERE, "..", "build", "datagen_card_test"), intrin,
+            cfg, mask_model=mask, rng=np.random.default_rng(3),
+            log=lambda *a: None, device=d)
+        conv.plane = kernel_bench.HostStreamPlane(2048, 40.0, d)
+        written = []
+        conv._save = lambda *arrays: written.append(arrays)
+        before = forest_eval_cuda.evaluate_forest_cuda.launches
+        for depth, color in scenes:
+            conv.process_frame(depth, color)
+        runs.append((written, conv.palette,
+                     forest_eval_cuda.evaluate_forest_cuda.launches - before))
+    (card, pal_card, n_card), (cpu, pal_cpu, n_cpu) = runs
+    assert (n_card, n_cpu) == (5, 0)
+    np.testing.assert_array_equal(pal_card, pal_cpu)
+    assert len(card) == len(cpu) == 5
+    for a, b in zip(card, cpu):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -37,9 +37,15 @@ def test_import_loads_no_jax():
         "beats3d_tpu_torch.runtime.camera, beats3d_tpu_torch.data.synth, "
         "beats3d_tpu_torch.train, beats3d_tpu_torch.data.dataset, "
         "beats3d_tpu_torch.data.blocks, beats3d_tpu_torch.data.device_codec, "
-        "beats3d_tpu_torch.probes, beats3d_tpu_torch.probes.__main__\n"
+        "beats3d_tpu_torch.probes, beats3d_tpu_torch.probes.__main__, "
+        "beats3d_tpu_torch.ops.render, beats3d_tpu_torch.ops.colors, "
+        "beats3d_tpu_torch.ops.posefit, beats3d_tpu_torch.data.datagen, "
+        "beats3d_tpu_torch.data.rigged, beats3d_tpu_torch.data.merge, "
+        "beats3d_tpu_torch.utils.transforms, "
+        "beats3d_tpu_torch.utils.orbit_html\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
-        "apps.run_live_torch\n"
+        "apps.run_live_torch, apps.live_data_convert_torch, "
+        "apps.pose_fit_torch, apps.merge_datasets_torch\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'beats3d_tpu' "
@@ -61,8 +67,13 @@ def test_sources_import_no_jax():
              if f.endswith(".py")]
     files += [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "apps", f"{name}_torch.py") for name in (
-        "bz3d", "train_model", "test_on_saved_model", "run_live")]
+        "bz3d", "train_model", "test_on_saved_model", "run_live",
+        "live_data_convert", "pose_fit", "merge_datasets")]
     assert len(files) > 15
+    for name in ("ops/render.py", "ops/colors.py", "ops/posefit.py",
+                 "data/datagen.py", "data/rigged.py", "data/merge.py",
+                 "utils/transforms.py", "utils/orbit_html.py"):
+        assert os.path.join(PKG, name) in files, name
     for path in files:
         with open(path) as f:
             assert not pattern.search(f.read()), path
