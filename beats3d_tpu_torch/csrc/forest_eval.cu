@@ -386,6 +386,16 @@ extern "C" int b3d_evaluate_layered(const int32_t* depth, int32_t* out, int n,
 // indexed at run time (a pdf pointer and a stop level per tree would take
 // 192 bytes of local memory), and the class sums are sized to the forest
 // (8 or 16).
+//
+// Pdf-sum mode (kPdfSum, entry b3d_forest_pdf_sum): the same walk, scratch
+// and level-order sums, with the argmax epilogue replaced by the sums
+// themselves, for a forest sharded by trees (the counterpart of the
+// per-shard beats3d_tpu/ops/forest_eval.py:forest_pdf_sum that JAX's
+// beats3d_tpu/parallel/eval_sharded.py combines with one psum).  Each lane
+// writes its classes k, k + G, ... of the pixel's (C) float32 sums, and its
+// group's first lane the eligibility and all-trees-done bytes.  An
+// ineligible pixel is not walked: its sums are 0 and its done byte 1 (the
+// plain version walks it, and its callers never read it there).
 
 namespace {
 
@@ -412,14 +422,16 @@ __device__ __forceinline__ int2 walk_dense(const float* __restrict__ tree,
   return make_int2(levels, -1);
 }
 
-template <int G, int kMaxC>
+template <int G, int kMaxC, bool kPdfSum>
 __global__ void __launch_bounds__(kLayeredThreads, 1)
 evaluate_forest_kernel(const int32_t* __restrict__ depth,
                        int32_t* __restrict__ out, int h, int w, int r,
                        float scale, const float* __restrict__ forest,
                        int trees, int levels, int classes,
                        const int32_t* __restrict__ filter, int filter_class,
-                       int write_all_eligible) {
+                       int write_all_eligible, float* __restrict__ pdf_out,
+                       uint8_t* __restrict__ eligible_out,
+                       uint8_t* __restrict__ done_out) {
   constexpr int kPix = 32 / G;
   constexpr int kCls = (kMaxC + G - 1) / G;
   extern __shared__ int2 scratch[];
@@ -500,57 +512,82 @@ evaluate_forest_kernel(const int32_t* __restrict__ depth,
         }
         prev = cur;
       }
+      if constexpr (kPdfSum) {
 #pragma unroll
-      for (int q = 0; q < kCls; ++q) {
-        if (k + q * G < classes && acc[q] > best_v) {
-          best_v = acc[q];
-          best_c = k + q * G;
+        for (int q = 0; q < kCls; ++q) {
+          if (k + q * G < classes) pdf_out[oi * classes + k + q * G] = acc[q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kCls; ++q) {
+          if (k + q * G < classes && acc[q] > best_v) {
+            best_v = acc[q];
+            best_c = k + q * G;
+          }
         }
       }
     }
-    // the group's argmax: the larger sum, the smaller class on a tie
+    if constexpr (!kPdfSum) {
+      // the group's argmax: the larger sum, the smaller class on a tie
 #pragma unroll
-    for (int m = 1; m < G; m <<= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best_v, m);
-      const int oc = __shfl_xor_sync(0xffffffffu, best_c, m);
-      if (ov > best_v || (ov == best_v && oc < best_c)) {
-        best_v = ov;
-        best_c = oc;
+      for (int m = 1; m < G; m <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best_v, m);
+        const int oc = __shfl_xor_sync(0xffffffffu, best_c, m);
+        if (ov > best_v || (ov == best_v && oc < best_c)) {
+          best_v = ov;
+          best_c = oc;
+        }
       }
     }
   }
-  if (inside && k == 0) {
+  if constexpr (kPdfSum) {
+    if (inside) {
+      if (!write) {
+#pragma unroll
+        for (int q = 0; q < kCls; ++q) {
+          if (k + q * G < classes) pdf_out[oi * classes + k + q * G] = 0.0f;
+        }
+      }
+      if (k == 0) {
+        eligible_out[oi] = eligible ? 1 : 0;
+        done_out[oi] = done ? 1 : 0;             // 1 where not walked
+      }
+    }
+  } else if (inside && k == 0) {
     out[oi] = !write ? b3d::kMissing : (best_c == kMaxClasses ? 0 : best_c);
   }
 }
 
-template <int G, int kMaxC>
-int launch_forest(const int32_t* depth, int32_t* out, int n, int h, int w,
-                  int r, float scale, const float* forest, int trees,
-                  int levels, int classes, const int32_t* filter,
+// Label mode writes out; pdf-sum mode writes the three arrays of sums.
+struct ForestSums {
+  float* pdf;
+  uint8_t* eligible;
+  uint8_t* done;
+};
+
+template <int G, int kMaxC, bool kPdfSum>
+int launch_forest(const int32_t* depth, int32_t* out, ForestSums sums, int n,
+                  int h, int w, int r, float scale, const float* forest,
+                  int trees, int levels, int classes, const int32_t* filter,
                   int filter_class, int write_all_eligible,
                   cudaStream_t stream) {
   const dim3 grid((w / r + 32 / G - 1) / (32 / G), (h / r + kWarps - 1) / kWarps, n);
   const int smem = kWarps * (32 / G) * trees * static_cast<int>(sizeof(int2));
-  evaluate_forest_kernel<G, kMaxC><<<grid, kLayeredThreads, smem, stream>>>(
-      depth, out, h, w, r, scale, forest, trees, levels, classes, filter,
-      filter_class, write_all_eligible);
+  evaluate_forest_kernel<G, kMaxC, kPdfSum>
+      <<<grid, kLayeredThreads, smem, stream>>>(
+          depth, out, h, w, r, scale, forest, trees, levels, classes, filter,
+          filter_class, write_all_eligible, sums.pdf, sums.eligible,
+          sums.done);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// depth: (n, h, w) int32; out: (n, h / r, w / r) int32; forest: (trees,
-// 2^levels - 1, 7 + 2 * classes) float32; filter: (n, h / r, w / r) int32 or
-// null; all device pointers.  lanes: lanes per pixel (1, 2, 4, 8 or 16; 0 =
-// one per tree, halved while the lanes would fill the card more than 4
-// times over).  Returns cudaGetLastError() after the launch.
-extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
-                                   int h, int w, int r, float scale,
-                                   const float* forest, int trees, int levels,
-                                   int classes, const int32_t* filter,
-                                   int filter_class, int write_all_eligible,
-                                   int lanes, void* stream) {
+// Checks the arguments, picks the lanes per pixel and launches B1 in label
+// mode (sums.pdf null) or in pdf-sum mode.
+int run_forest(const int32_t* depth, int32_t* out, ForestSums sums, int n,
+               int h, int w, int r, float scale, const float* forest,
+               int trees, int levels, int classes, const int32_t* filter,
+               int filter_class, int write_all_eligible, int lanes,
+               void* stream) {
   if (trees < 1 || trees > kMaxTrees || classes < 1 || classes > kMaxClasses ||
       levels < 1 || levels > 30 || r < 1 || n > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -566,11 +603,15 @@ extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
     while (lanes > 1 && pixels * lanes > 4LL * sms * 2048) lanes /= 2;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pdf = sums.pdf != nullptr;
 #define B3D_FOREST(G)                                                          \
   case G:                                                                      \
-    return (classes <= 8 ? launch_forest<G, 8> : launch_forest<G, 16>)(        \
-        depth, out, n, h, w, r, scale, forest, trees, levels, classes, filter, \
-        filter_class, write_all_eligible, s);
+    return (pdf ? (classes <= 8 ? launch_forest<G, 8, true>                    \
+                                : launch_forest<G, 16, true>)                  \
+                : (classes <= 8 ? launch_forest<G, 8, false>                   \
+                                : launch_forest<G, 16, false>))(               \
+        depth, out, sums, n, h, w, r, scale, forest, trees, levels, classes,   \
+        filter, filter_class, write_all_eligible, s);
   switch (lanes) {
     B3D_FOREST(1)
     B3D_FOREST(2)
@@ -581,6 +622,41 @@ extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef B3D_FOREST
+}
+
+}  // namespace
+
+// depth: (n, h, w) int32; out: (n, h / r, w / r) int32; forest: (trees,
+// 2^levels - 1, 7 + 2 * classes) float32; filter: (n, h / r, w / r) int32 or
+// null; all device pointers.  lanes: lanes per pixel (1, 2, 4, 8 or 16; 0 =
+// one per tree, halved while the lanes would fill the card more than 4
+// times over).  Returns cudaGetLastError() after the launch.
+extern "C" int b3d_evaluate_forest(const int32_t* depth, int32_t* out, int n,
+                                   int h, int w, int r, float scale,
+                                   const float* forest, int trees, int levels,
+                                   int classes, const int32_t* filter,
+                                   int filter_class, int write_all_eligible,
+                                   int lanes, void* stream) {
+  return run_forest(depth, out, ForestSums{nullptr, nullptr, nullptr}, n, h,
+                    w, r, scale, forest, trees, levels, classes, filter,
+                    filter_class, write_all_eligible, lanes, stream);
+}
+
+// B1's pdf-sum mode.  depth: (n, h, w) int32; pdf: (n, h / r, w / r,
+// classes) float32; eligible, all_done: (n, h / r, w / r) uint8 (0 or 1);
+// forest as above; all device pointers; the lanes per pixel are the label
+// mode's default.  Returns cudaGetLastError() after the launch.
+extern "C" int b3d_forest_pdf_sum(const int32_t* depth, float* pdf,
+                                  uint8_t* eligible, uint8_t* all_done, int n,
+                                  int h, int w, int r, float scale,
+                                  const float* forest, int trees, int levels,
+                                  int classes, void* stream) {
+  if (pdf == nullptr || eligible == nullptr || all_done == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run_forest(depth, nullptr, ForestSums{pdf, eligible, all_done}, n, h,
+                    w, r, scale, forest, trees, levels, classes, nullptr, -1,
+                    1, 0, stream);
 }
 
 // Message of a cudaError_t returned by the entries above.

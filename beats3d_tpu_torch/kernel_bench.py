@@ -7,8 +7,8 @@ parent-against-change timing.
 
 DIR holds an earlier version of ``forest_eval.cu``, ``forest_walk.cuh`` and
 ``train_features.cu`` (for example ``git show REV:beats3d_tpu_torch/csrc/
-FILE``), one whose B1 entry takes no ``lanes`` argument and whose K1 entry
-does.  The script builds them with
+FILE``) whose K1 entry takes a ``lanes`` argument; its B1 entry may take
+one or not, as its source says.  The script builds them with
 the port's nvcc flags into ``build/``, checks that the earlier and the
 current kernels give the plain versions' outputs, and times them in turns
 (earlier, current, current, earlier) from CUDA graphs at every row.  Then
@@ -37,6 +37,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -263,6 +264,18 @@ def forest_work(depth, flat, *, labels_reduce=1, filter_images=None,
     return bytes_moved, 9 * rows.numel() + c * leaves.numel()
 
 
+def pdf_sum_work(depth, flat, *, labels_reduce=1, scale_factor=1.0):
+    """(bytes, operations) of B1's pdf-sum mode: :func:`forest_work`'s node
+    rows, leaf sides and operations, with the (N, Hl, Wl, C) float32 sums
+    and the two (N, Hl, Wl) byte masks written in place of the labels."""
+    c = forest_dims(flat.shape)[2]
+    bytes_moved, ops = forest_work(depth, flat, labels_reduce=labels_reduce,
+                                   scale_factor=scale_factor)
+    n, h, w = depth.shape
+    out = n * (h // labels_reduce) * (w // labels_reduce)
+    return bytes_moved - 4 * out + (4 * c + 2) * out, ops
+
+
 def b4_work(depth, props, active):
     """(bytes, operations) of the split-bit kernel B4: depth, proposals and
     active mask read once, the packed words written once; 10 operations per
@@ -288,9 +301,13 @@ def k2_work(depth):
 def build_parent(src_dir):
     """Build the earlier forest_eval.cu and train_features.cu of ``src_dir``
     (with its forest_walk.cuh) into build/beats3d_tpu_torch_parent/ with the
-    port's flags; return the loaded library and nvcc's log."""
+    port's flags; return the loaded library, nvcc's log, and whether its B1
+    entry takes ``lanes``."""
     srcs = [os.path.join(src_dir, f)
             for f in ("forest_eval.cu", "train_features.cu")]
+    with open(srcs[0]) as fh:
+        entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", fh.read())
+    b1_lanes = entry is not None and "int lanes" in entry.group(1)
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
     for f in srcs + [os.path.join(src_dir, "forest_walk.cuh")]:
         with open(f, "rb") as fh:
@@ -310,11 +327,11 @@ def build_parent(src_dir):
         i, vp]
     lib.b3d_evaluate_layered.restype = i
     lib.b3d_evaluate_forest.argtypes = [
-        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, vp]
+        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, *[i] * b1_lanes, vp]
     lib.b3d_evaluate_forest.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
-    return lib, proc.stdout + proc.stderr
+    return lib, proc.stdout + proc.stderr, b1_lanes
 
 
 def _stream():
@@ -339,9 +356,9 @@ def parent_k1(lib, model, descs):
     return run
 
 
-def forest_runner(lib, *, parent=False, lanes=0):
-    """B1 from ``lib``: the earlier entry, or the current one with a lane
-    grouping (0: the kernel's choice)."""
+def forest_runner(lib, *, lanes=0):
+    """B1 from ``lib`` with a lane grouping (0: the kernel's choice; None:
+    an earlier entry that takes none)."""
     def run(depth, flat, labels_reduce=1, filter_images=None, filter_class=-1,
             scale_factor=1.0, write_all_eligible=True):
         n, h, w = depth.shape
@@ -349,7 +366,7 @@ def forest_runner(lib, *, parent=False, lanes=0):
         t, lv, c = forest_dims(flat.shape)
         out = torch.empty((n, h // r, w // r), dtype=torch.int32,
                           device=depth.device)
-        extra = () if parent else (lanes,)
+        extra = () if lanes is None else (lanes,)
         _check(lib.b3d_evaluate_forest(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
             flat.data_ptr(), t, lv, c,
@@ -403,8 +420,8 @@ def bench_b4(lib, intrin, dev, smi):
             **t)
 
 
-def bench_b1(lib, new_lib, model, dev, smi):
-    old = forest_runner(lib, parent=True)
+def bench_b1(lib, b1_lanes, new_lib, model, dev, smi):
+    old = forest_runner(lib, lanes=0 if b1_lanes else None)
     new = forest_eval_cuda.evaluate_forest_cuda
     depth, cases = b1_cases(model, dev)
     for name, (flat, kw) in cases.items():
@@ -444,14 +461,14 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     say("device", card=smi)
-    lib, log = build_parent(args.parent)
+    lib, log, b1_lanes = build_parent(args.parent)
     new_lib = cuda_lib.library()
     say("build", parent_ptxas=cuda_lib.ptxas_summary(log),
         ptxas=cuda_lib.ptxas_summary(cuda_lib.LIBRARY.build.log))
     inp = bench_inputs(dev)
     m = inp.model
     bench_b4(lib, inp.intrin, dev, smi)
-    bench_b1(lib, new_lib, m, dev, smi)
+    bench_b1(lib, b1_lanes, new_lib, m, dev, smi)
     K1 = forest_eval_cuda.evaluate_layered_cuda
     descs = forest_eval_cuda.layer_descs(m.layers, dev)
     old_k1 = parent_k1(lib, m, descs)

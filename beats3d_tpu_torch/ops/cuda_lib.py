@@ -156,6 +156,10 @@ def _bind(lib):
         vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, i, vp,
     ]
     lib.b3d_evaluate_forest.restype = i
+    lib.b3d_forest_pdf_sum.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp,
+    ]
+    lib.b3d_forest_pdf_sum.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
     # the scripts/ probes (beats3d_tpu_torch/probes): pointers, ints, stream

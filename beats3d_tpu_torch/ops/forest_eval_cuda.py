@@ -5,7 +5,10 @@
   beats3d_tpu/ops/forest_eval_pallas.py:evaluate_layered_pallas;
 * B1, :func:`evaluate_forest_cuda`: one forest, with an optional filter
   image, probe scale and single-tree semantics, the counterpart of
-  beats3d_tpu/ops/forest_eval_pallas.py:evaluate_forest_pallas.
+  beats3d_tpu/ops/forest_eval_pallas.py:evaluate_forest_pallas;
+* B1's pdf-sum mode, :func:`forest_pdf_sum_cuda`: the per-pixel class sums
+  of one forest (a tree shard of one, in :mod:`..parallel.eval_sharded`),
+  the counterpart of beats3d_tpu/ops/forest_eval.py:forest_pdf_sum.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version (:mod:`.forest_eval`) for CPU tensors.  There is no fallback from one
@@ -146,6 +149,26 @@ def evaluate_forest_plain(depth, forest, *, labels_reduce: int = 1,
         write_all_eligible=write_all_eligible)
 
 
+def _check_forest(depth, forest, what):
+    """B1's checks of a CUDA depth batch and dense forest; returns the
+    forest's (trees, levels, classes)."""
+    if depth.dtype != torch.int32 or not depth.is_contiguous() or depth.dim() != 3:
+        raise ValueError(
+            f"{what}: depth must be contiguous (N, H, W) int32, "
+            f"got {depth.dtype} {tuple(depth.shape)}")
+    if (forest.device != depth.device or forest.dtype != torch.float32
+            or not forest.is_contiguous() or forest.dim() != 3):
+        raise ValueError(
+            f"{what}: the forest must be a contiguous "
+            "(T, 2**D - 1, 7 + 2C) float32 tensor on the depth's device")
+    trees, levels, classes = forest_dims(forest.shape)
+    if not (1 <= trees <= MAX_TREES and classes <= MAX_CLASSES):
+        raise ValueError(
+            f"{what}: the kernel takes <= {MAX_TREES} trees "
+            f"and <= {MAX_CLASSES} classes, got {trees} and {classes}")
+    return trees, levels, classes
+
+
 def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
                          filter_images=None, filter_class: int = -1,
                          scale_factor: float = 1.0,
@@ -166,20 +189,7 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
               write_all_eligible=write_all_eligible)
     if depth.device.type != "cuda":
         return evaluate_forest_plain(depth, forest, **kw)
-    if depth.dtype != torch.int32 or not depth.is_contiguous() or depth.dim() != 3:
-        raise ValueError(
-            f"evaluate_forest_cuda: depth must be contiguous (N, H, W) int32, "
-            f"got {depth.dtype} {tuple(depth.shape)}")
-    if (forest.device != depth.device or forest.dtype != torch.float32
-            or not forest.is_contiguous() or forest.dim() != 3):
-        raise ValueError(
-            "evaluate_forest_cuda: the forest must be a contiguous "
-            "(T, 2**D - 1, 7 + 2C) float32 tensor on the depth's device")
-    trees, levels, classes = forest_dims(forest.shape)
-    if not (1 <= trees <= MAX_TREES and classes <= MAX_CLASSES):
-        raise ValueError(
-            f"evaluate_forest_cuda: the kernel takes <= {MAX_TREES} trees "
-            f"and <= {MAX_CLASSES} classes, got {trees} and {classes}")
+    trees, levels, classes = _check_forest(depth, forest, "evaluate_forest_cuda")
     n, h, w = depth.shape
     r = int(labels_reduce)
     out_shape = (n, h // r, w // r)
@@ -208,3 +218,46 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
 
 # Kernel launches so far (the CPU path does not count).
 evaluate_forest_cuda.launches = 0
+
+
+def forest_pdf_sum_cuda(depth, forest, *, labels_reduce: int = 1,
+                        scale_factor: float = 1.0):
+    """Per-pixel leaf-pdf sums of one forest on the stride-r grid:
+    ((N, H//r, W//r, C) float32, eligible (N, H//r, W//r) bool, all_done
+    (N, H//r, W//r) bool), as :func:`.forest_eval.forest_pdf_sum`.
+
+    depth: (N, H, W); forest: dense (T, 2**D - 1, 7 + 2C) float32.  On
+    CUDA (depth contiguous int32, the forest contiguous float32 with
+    T <= 16 and C <= 16, on one card) B1 in its pdf-sum mode: the sums are
+    the plain version's bit for bit on eligible pixels; an ineligible pixel
+    is not walked, its sums are 0 and its all_done True (the plain version
+    walks it; ``labels_from_pdf`` never reads it).  On the CPU: the plain
+    version.
+    """
+    if depth.device.type != "cuda":
+        return forest_eval.forest_pdf_sum(
+            depth, PackedForest.from_flat(forest).tables(),
+            labels_reduce=labels_reduce, scale_factor=scale_factor)
+    trees, levels, classes = _check_forest(depth, forest, "forest_pdf_sum_cuda")
+    n, h, w = depth.shape
+    r = int(labels_reduce)
+    shape = (n, h // r, w // r)
+    pdf = torch.empty(shape + (classes,), dtype=torch.float32,
+                      device=depth.device)
+    eligible = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+    all_done = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.b3d_forest_pdf_sum(
+            depth.data_ptr(), pdf.data_ptr(), eligible.data_ptr(),
+            all_done.data_ptr(), n, h, w, r, float(scale_factor),
+            forest.data_ptr(), trees, levels, classes, stream,
+        )
+    cuda_lib.check(status, "forest_pdf_sum_cuda")
+    forest_pdf_sum_cuda.launches += 1
+    return pdf, eligible.view(torch.bool), all_done.view(torch.bool)
+
+
+# Kernel launches so far (the CPU path does not count).
+forest_pdf_sum_cuda.launches = 0

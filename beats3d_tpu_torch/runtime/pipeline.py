@@ -479,3 +479,23 @@ class FramePipeline:
         :func:`frame_step_batched`."""
         return frame_step_batched(
             self, self.as_depth(raw_depths), self._plane(plane_mat))
+
+    def batch_sharded(self, raw_depths, plane_mat, mesh, axis: str = "data"):
+        """The throughput path on a mesh of ranks: frames sharded over
+        ``mesh``'s ``axis`` (counterpart of JAX's
+        ``FramePipeline.batch_sharded``).
+
+        Pure data parallelism: each rank runs :meth:`batch` (K2, grouping,
+        K1, mean shift, heights) on its contiguous frame slice with the
+        model replicated, with no collective inside the frame; the outputs
+        are gathered over ``axis``.  ``raw_depths``: the whole (B, H, W)
+        batch on every rank, B divisible by the axis size; the pipeline's
+        model must lie on the mesh's device.  Returns :meth:`batch`'s dict
+        for all B frames, on every rank.
+        """
+        if self.device != mesh.device:
+            raise ValueError(f"batch_sharded: the model is on {self.device}, "
+                             f"the mesh on {mesh.device}")
+        out = self.batch(mesh.shard(torch.as_tensor(raw_depths), axis),
+                         plane_mat)
+        return {k: mesh.all_gather(v, axis) for k, v in out.items()}

@@ -63,12 +63,17 @@ def train_forest(
     log=print,
     streaming: bool = False,
     checkpoint_dir: Optional[str] = None,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> DecisionForest:
     """Train ``trees_to_try`` candidate trees on ``device``, keep the
     ``trees_in_forest`` best by held-out pct_match, return the forest.
 
-    ``streaming`` ships image blocks host to device per use.
+    ``device`` None means the mesh's device, or "cuda" without a mesh.
+    ``streaming`` ships image blocks host to device per use.  ``mesh`` (a
+    :class:`..parallel.mesh.Mesh`) trains every tree on a (data, model)
+    grid of ranks; each rank then scores the candidates on the whole test
+    set itself and returns the same forest.
     ``checkpoint_dir`` makes a run resumable per candidate tree: after each
     tree the forest so far, the acceptance scores and the rng state go to
     ``forest_ckpt.npz`` there, and a rerun with the same config picks up
@@ -80,7 +85,8 @@ def train_forest(
 
     trainer = DecisionTreeTrainer(
         images_per_block, proposals_per_block, streaming=streaming,
-        device=device)
+        device=device, mesh=mesh)
+    device = trainer.device
     trainer.allocate(train_data, num_random_features, max_tree_depth)
 
     c = train_data.num_classes()

@@ -26,6 +26,14 @@ in both packages:
 ``streaming=True`` keeps the blocks on the host and ships them per use:
 run-length coded and decoded on the device (``stream_codec=True``, the
 default), or plain with the node ids zlib-compressed on the host.
+
+``mesh`` (a :class:`..parallel.mesh.Mesh`) trains on a (data, model) grid
+of ranks: each rank keeps its slice of every image block (``data``) and
+histograms its slice of every proposal block (``model``); the counts are
+summed over ``data`` once per (proposal block, node block), at the rows of
+the block's active nodes only, and the best splits merged over ``model``
+(:mod:`..parallel.train_sharded`).  Every rank draws the same proposals and
+writes the same tree, byte-equal to one device's.
 """
 
 from __future__ import annotations
@@ -176,25 +184,43 @@ class DecisionTreeTrainer:
         max_nodes_per_block: int = 1 << 17,
         streaming: bool = False,
         stream_codec: bool = True,
-        device="cuda",
+        device=None,
+        mesh=None,
     ):
-        """``device`` holds the data and runs every step."""
+        """``device`` holds the data and runs every step; None means the
+        mesh's device, or "cuda" without a mesh."""
         self.images_per_block = num_images_per_image_block
         self.proposals_per_block = num_proposals_per_proposal_block
         self.max_nodes_per_block = max_nodes_per_block
         self.streaming = streaming
         self.stream_codec = stream_codec
+        self.mesh = mesh
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         self.device = torch.device(device)
 
     def allocate(self, dataset, num_random_features: int, max_tree_depth: int):
         assert dataset.num_images % self.images_per_block == 0
         assert num_random_features % self.proposals_per_block == 0
+        if self.mesh is not None:
+            assert self.images_per_block % self.mesh.shape["data"] == 0, (
+                "image block size must divide the mesh data axis")
+            assert self.proposals_per_block % self.mesh.shape["model"] == 0, (
+                "proposal block size must divide the mesh model axis")
         self.num_random_features = num_random_features
         self.max_tree_depth = max_tree_depth
         self.num_image_blocks = dataset.num_images // self.images_per_block
         self.num_proposal_blocks = (
             num_random_features // self.proposals_per_block
         )
+
+    def _local(self, block):
+        """This rank's image slice of a host block (all of it without a
+        mesh)."""
+        block = np.asarray(block)
+        if self.mesh is None:
+            return block
+        return self.mesh.shard(block, "data")
 
     def _upload(self, arr, dtype):
         """Host numpy block -> ``dtype`` tensor on the trainer's device."""
@@ -211,6 +237,7 @@ class DecisionTreeTrainer:
         c = dataset.num_classes()
         d = self.max_tree_depth
         dev = self.device
+        mesh = self.mesh
         tree.data[:] = 0.0
 
         resident = not self.streaming
@@ -226,8 +253,10 @@ class DecisionTreeTrainer:
             # re-compressed after every level's advance
             from ..data.blocks import CompressedBlocksDynamic
 
+            per_rank = self.images_per_block // (
+                1 if mesh is None else mesh.shape["data"])
             nodes_store = CompressedBlocksDynamic(
-                self.num_image_blocks, self.images_per_block, dataset.img_dims)
+                self.num_image_blocks, per_rank, dataset.img_dims)
         node_counts = np.zeros((1 << d, c), dtype=np.int64)
         for i in range(self.num_image_blocks):
             lab = dataset.get_labels_block(i)
@@ -235,15 +264,16 @@ class DecisionTreeTrainer:
             for label_id, n in zip(un, cnt):
                 if label_id > 0:
                     node_counts[0, label_id] += n
+            lab = self._local(lab)
             nodes = np.full(lab.shape, -1, dtype=np.int32)
             nodes[lab > 0] = 0
             if resident:
-                depth_blocks.append(
-                    self._upload(dataset.get_depth_block(i), torch.int32))
+                depth_blocks.append(self._upload(
+                    self._local(dataset.get_depth_block(i)), torch.int32))
                 labels_blocks.append(self._upload(lab, torch.int32))
                 nodes_blocks.append(self._upload(nodes, torch.int32))
             elif codec_stores is not None:
-                db = np.asarray(dataset.get_depth_block(i))
+                db = self._local(dataset.get_depth_block(i))
                 if codec_stores[0] is None:
                     from ..data.device_codec import DeviceCodecDynamic
 
@@ -267,12 +297,21 @@ class DecisionTreeTrainer:
                 return tuple(s.get_block(ib).to(torch.int32)
                              for s in codec_stores)
             return (
-                self._upload(dataset.get_depth_block(ib), torch.int32),
-                self._upload(dataset.get_labels_block(ib), torch.int32),
+                self._upload(self._local(dataset.get_depth_block(ib)),
+                             torch.int32),
+                self._upload(self._local(dataset.get_labels_block(ib)),
+                             torch.int32),
                 self._upload(nodes_store.get_block(ib), torch.int32),
             )
 
+        # this rank's proposal slice (all of the block without a mesh)
         p = self.proposals_per_block
+        if mesh is not None:
+            p //= mesh.shape["model"]
+            p_lo = mesh.index("model") * p
+            from ..parallel.train_sharded import block_step
+        else:
+            p_lo = 0
         active = np.array([0], dtype=np.int64)
 
         for level in range(d):
@@ -307,10 +346,10 @@ class DecisionTreeTrainer:
                     if proposals_per_level is not None:
                         props_np = proposals_per_level[level][pb]
                     else:
-                        props_np = make_random_features(p, rng)
-                    props = torch.as_tensor(
-                        np.ascontiguousarray(props_np, dtype=np.float32),
-                        device=dev)
+                        props_np = make_random_features(
+                            self.proposals_per_block, rng)
+                    props = torch.as_tensor(np.ascontiguousarray(
+                        props_np[p_lo:p_lo + p], dtype=np.float32), device=dev)
 
                     # split bits once per (proposal block, image block),
                     # reused across node blocks when the data is resident
@@ -338,13 +377,16 @@ class DecisionTreeTrainer:
                             left += l_i
                             total += t_i
 
-                        best_gain, best_params, best_left, best_right = (
-                            pick_best_step(
+                        best = (best_gain, best_params, best_left, best_right)
+                        if mesh is None:
+                            best = pick_best_step(
                                 active_t, parent_counts, left, total, props,
-                                best_gain, best_params, best_left, best_right,
-                                w2=w2, parent_lo=lo // 2,
-                            )
-                        )
+                                *best, w2=w2, parent_lo=lo // 2)
+                        else:
+                            best = block_step(
+                                left, total, props, active_t, parent_counts,
+                                best, mesh, parent_lo=lo // 2, w2=w2)
+                        best_gain, best_params, best_left, best_right = best
 
                 # -- finalize this level (host, few KB) ----------------------
                 with torch.profiler.record_function("finalize"):

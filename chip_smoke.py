@@ -52,7 +52,18 @@ Then drives the port's paths:
   card = CPU byte for byte;
 * native grouping: the host C++ library built from the checkout and held
   to ``make_hand_groups`` on the card on the 16 bench scenes at the
-  pipeline's grouping size.
+  pipeline's grouping size;
+* the multi-device paths (``beats3d_tpu_torch.parallel``), on ranks that
+  share the one card over gloo (so their walls measure no scaling): B1's
+  pdf-sum mode against the plain ``forest_pdf_sum`` on the golden frames
+  (the fine forest, its 2-tree shards, r=2 at scale 0.5), then one spawn
+  of 4 ranks running the tree-sharded eval of the fine forest on the
+  golden frames (2x2, against the plain sharded sums on the CPU and
+  single-device B1), ``FramePipeline.batch_sharded`` on the 16 bench
+  scenes (4x1, against ``.batch`` on all 16) and ``train_forest(mesh=)`` on
+  train_path's data (2x2, the same forest and ``pct_match``); one nccl rank
+  (1x1) with the eval and a D=8 tree against one device; and the dry run,
+  ``python -m beats3d_tpu_torch.parallel --ranks 4 --device cuda``.
 
 Each path checks that its kernels ran on it and that the outputs are right.
 Any failure raises (exit code != 0).
@@ -98,8 +109,11 @@ from beats3d_tpu_torch.data.synth import articulated_scene  # noqa: E402
 from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
-from beats3d_tpu_torch.models.forest import DecisionForest, PackedForest  # noqa: E402
+from beats3d_tpu_torch.models.forest import (  # noqa: E402
+    DecisionForest, DecisionTree, PackedForest)
 from beats3d_tpu_torch.native import grouping  # noqa: E402
+from beats3d_tpu_torch.parallel import jobs, launch  # noqa: E402
+from beats3d_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
     components, cuda_lib, forest_eval, forest_eval_cuda, points, posefit,
     preproc_cuda, stereo, train_features, train_features_cuda, warp,
@@ -113,7 +127,7 @@ from beats3d_tpu_torch.runtime.bagfile import BagSource, write_minimal_bag  # no
 from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
 from beats3d_tpu_torch.runtime.viewer import ViewerServer  # noqa: E402
-from beats3d_tpu_torch.train import train_forest  # noqa: E402
+from beats3d_tpu_torch.train import DecisionTreeTrainer, train_forest  # noqa: E402
 from beats3d_tpu_torch.utils.intrinsics import CameraIntrinsics  # noqa: E402
 from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
 
@@ -122,6 +136,7 @@ K1 = forest_eval_cuda.evaluate_layered_cuda
 K2 = preproc_cuda.plane_band_gauss_cuda
 B1 = forest_eval_cuda.evaluate_forest_cuda
 B4 = train_features_cuda.train_feature_bits_cuda
+B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
 APP_FRAMES = 60
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
 BATCH = kb.BATCH
@@ -610,7 +625,7 @@ def phase_train(intrin, dev, smi):
                              f"want {PCT_MATCH_D16}")
     if min(in_place["b4"]["launches"], in_place["b1"]["launches"]) < 1:
         raise AssertionError(f"profiled candidate tree: {in_place}")
-    return launches
+    return launches, forest
 
 
 def reduced_case(intrin):
@@ -1392,6 +1407,197 @@ def phase_grouping_path(inp, smi):
                              f"mismatches, centroid rel {info_rel}")
 
 
+def phase_pdf_sum(model, dev):
+    """B1's pdf-sum mode against the plain forest_pdf_sum on the golden
+    frames: the fine forest (T=4, D=16, C=7) at r=1, its two 2-tree shards,
+    and r=2 at scale 0.5.  Eligibility equal; sums and all_done bit-equal
+    on eligible pixels (0 and True elsewhere)."""
+    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
+    depth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
+    fine = model.layers[1].flat
+    cases = {"golden_r1": (fine, dict(labels_reduce=1)),
+             "shard_0": (fine[:2].contiguous(), dict(labels_reduce=1)),
+             "shard_1": (fine[2:].contiguous(), dict(labels_reduce=1)),
+             "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5))}
+    res, bad = {}, {}
+    for name, (flat, kw) in cases.items():
+        tables = PackedForest.from_flat(flat).tables()
+        pdf, elig, done = B1_PDF(depth, flat, **kw)
+        w_pdf, w_elig, w_done = forest_eval.forest_pdf_sum(depth, tables, **kw)
+        torch.cuda.synchronize()
+        e = elig.cpu().numpy()
+        diff = dict(
+            eligible=int((elig != w_elig).sum()),
+            sums=int((pdf.cpu().numpy().view(np.uint32)
+                      != w_pdf.cpu().numpy().view(np.uint32))[e].sum()),
+            all_done=int((done != w_done).cpu().numpy()[e].sum()),
+            ineligible_nonzero=int(pdf.cpu().numpy()[~e].any(-1).sum()
+                                   + (~done.cpu().numpy()[~e]).sum()))
+        bound_ms, bound_by = kb.bound(*kb.pdf_sum_work(depth, flat, **kw))
+        res[name] = dict(
+            max_abs_err=float((pdf - w_pdf).abs().amax(-1)[elig].max()),
+            ms=graph_ms(lambda: B1_PDF(depth, flat, **kw)),
+            plain_ms=host_ms(lambda: forest_eval.forest_pdf_sum(
+                depth, tables, **kw), iters=2),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        say("pdf_sum_vs_plain", case=name, shape=list(depth.shape),
+            trees=int(flat.shape[0]), eligible_pixels=int(e.sum()),
+            differ=diff, **res[name])
+        if any(diff.values()):
+            bad[name] = diff
+    if bad:
+        raise AssertionError(f"B1 pdf-sum mode vs plain: {bad}")
+    return res
+
+
+def plain_sharded_labels(depth, flat, n_data, n_model):
+    """The tree-sharded labels computed plainly on the CPU: per frame slice,
+    the plain forest_pdf_sum of each contiguous tree slice, the slices'
+    sums added in model order, all_done's minimum, the argmax."""
+    depth, flat = depth.cpu(), flat.cpu()
+    out = []
+    for dd in depth.chunk(n_data):
+        parts = [forest_eval.forest_pdf_sum(
+            dd, PackedForest.from_flat(ff.contiguous()).tables())
+            for ff in flat.chunk(n_model)]
+        pdf = parts[0][0]
+        for p in parts[1:]:
+            pdf = pdf + p[0]
+        done = torch.stack([p[2] for p in parts]).all(0)
+        out.append(forest_eval.labels_from_pdf(pdf, parts[0][1], done))
+    return torch.cat(out).numpy()
+
+
+def top_two_gaps(depth, flat, where):
+    """The gap between the two largest class sums of the single-device sum
+    over all trees at the pixels ``where``."""
+    pdf, _, _ = forest_eval.forest_pdf_sum(
+        depth, PackedForest.from_flat(flat).tables())
+    top = np.sort(pdf.cpu().numpy()[where], axis=-1)
+    return (top[:, -1] - top[:, -2]).tolist()
+
+
+def phase_mesh_path(inp, smi, forest_d16):
+    """One spawn of 4 gloo ranks on the card: the tree-sharded eval (2x2),
+    batch_sharded on the 16 bench scenes (4x1) and train_forest(mesh=) at
+    the fine layer's width (2x2), each held to its single-device or plain
+    counterpart.  Returns the pdf-sum launches over the ranks."""
+    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
+    fine = inp.model.layers[1].flat
+    d_tr, l_tr = kb.hand_frames(inp.intrin, range(3000, 3000 + TRAIN_FRAMES))
+    d_te, l_te = kb.hand_frames(inp.intrin, range(3100, 3100 + TEST_FRAMES))
+    run = [
+        ("eval", jobs.eval_job, (2, 2),
+         dict(depth=gold["depth"], forest=fine.cpu().numpy())),
+        ("batch", jobs.batch_job, (4, 1), dict(
+            model_cfg=os.path.join(kb.FLAGSHIP, "model_cfg.json"),
+            intrin=inp.intrin, cfg=inp.pipe.cfg, frames=inp.scenes,
+            plane=inp.plane.cpu().numpy(), group_min_size=inp.pipe.group_min_size)),
+        ("train", jobs.train_forest_job, (2, 2), dict(
+            train=(d_tr, l_tr, 4), test=(d_te, l_te), num_classes=CLASSES,
+            seed=13, num_random_features=128, proposals_per_block=64,
+            images_per_block=4, max_tree_depth=16, trees_in_forest=2,
+            trees_to_try=3)),
+    ]
+    t0 = time.perf_counter()
+    per_rank = launch.spawn(jobs.run_jobs, 4, device="cuda", args=(run,))
+    spawn_s = time.perf_counter() - t0
+    res = {name: [r[name] for r in per_rank] for name, *_ in run}
+    failures = []
+
+    # tree-sharded eval
+    labels = res["eval"][0][0]
+    depth = inp.golden
+    plain = plain_sharded_labels(depth, fine, 2, 2)
+    single = B1(depth, fine).cpu().numpy()
+    torch.cuda.synchronize()
+    flips = np.argwhere(labels != single)
+    eval_launches = [l["B1_pdf_sum"] for _, l, _, _ in res["eval"]]
+    say("mesh_eval", card=smi, mesh=[2, 2], backend="gloo", frames=2,
+        trees=int(fine.shape[0]),
+        ranks_equal=all(np.array_equal(r[0], labels) for r in res["eval"]),
+        mismatches_vs_plain_sharded=int((labels != plain).sum()),
+        mismatches_vs_single_b1=len(flips),
+        top_two_gaps_at_mismatches=top_two_gaps(depth, fine, tuple(flips.T))
+        if len(flips) else [],
+        pdf_sum_launches_per_rank=eval_launches,
+        bytes_reduced_per_rank=[b for _, _, b, _ in res["eval"]],
+        wall_s_per_rank=[s_ for *_, s_ in res["eval"]])
+    if (labels != plain).any() or min(eval_launches) < 1 or not all(
+            np.array_equal(r[0], labels) for r in res["eval"]):
+        failures.append("tree-sharded eval")
+
+    # batch_sharded
+    got = res["batch"][0][0]
+    want = {k: v.cpu().numpy() for k, v in inp.pipe.batch(inp.frames,
+                                                          inp.plane).items()}
+    exact = {k: int((got[k] != want[k]).sum())
+             for k in ("labels", "g_info", "tip_valid", "tip_px")}
+    v = want["tip_valid"]
+    h_ok = np.allclose(got["heights"], want["heights"], rtol=1e-5, atol=1e-3,
+                       equal_nan=True)
+    k_launches = [(l["K1"], l["K2"]) for _, l, _, _ in res["batch"]]
+    say("mesh_batch_sharded", card=smi, mesh=[4, 1], backend="gloo",
+        frames=int(inp.scenes.shape[0]), mismatches=exact,
+        heights_within_tol=bool(h_ok), tips_valid=int(v.sum()),
+        k1_k2_launches_per_rank=k_launches,
+        wall_s_per_rank=[s_ for *_, s_ in res["batch"]],
+        bytes_gathered_per_rank=[b for _, _, b, _ in res["batch"]])
+    if any(exact.values()) or not h_ok or any(l != (1, 1) for l in k_launches):
+        failures.append("batch_sharded")
+
+    # the mesh trainer
+    (forest, pct, per_tree), launches, sent, wall = res["train"][0]
+    equal = forest.tobytes() == forest_d16.data.tobytes()
+    same = all(r[0][0].tobytes() == forest.tobytes() for r in res["train"])
+    b4 = [l["B4"] for _, l, _, _ in res["train"]]
+    say("mesh_train", card=smi, mesh=[2, 2], backend="gloo", depth=16,
+        classes=CLASSES, proposals=128, train_frames=TRAIN_FRAMES,
+        test_frames=TEST_FRAMES, forest_equal_single_device=equal,
+        ranks_equal=same, pct_match=pct, pct_match_expected=PCT_MATCH_D16,
+        b4_launches_per_rank=b4, b1_launches_per_rank=[
+            l["B1"] for _, l, _, _ in res["train"]],
+        seconds_per_candidate_tree=per_tree, wall_s=wall,
+        bytes_reduced_per_rank=[b for _, _, b, _ in res["train"]],
+        bytes_reduced_per_tree_rank0=sent / 3)
+    if not (equal and same and pct == PCT_MATCH_D16 and min(b4) > 0):
+        failures.append("mesh trainer")
+    say("mesh_path", card=smi, ranks=4, spawn_s=spawn_s, failures=failures)
+    if failures:
+        raise AssertionError(f"mesh_path failed: {failures}")
+    return sum(eval_launches)
+
+
+def phase_mesh_nccl(inp, dev):
+    """One nccl rank (a 1x1 mesh) on the card: the tree-sharded eval of the
+    fine forest on the golden frames and a D=8 tree of reduced_case, equal
+    to the single-device B1 labels and trainer."""
+    fine = inp.model.layers[1].flat
+    train, _, _ = reduced_case(inp.intrin)
+    tree_kw = dict(num_classes=CLASSES, images_per_block=2,
+                   proposals_per_block=64, num_random_features=64,
+                   max_tree_depth=8, seed=17)
+    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
+    run = [("mesh", jobs.describe_job, (1, 1), {}),
+           ("eval", jobs.eval_job, (1, 1),
+            dict(depth=gold["depth"], forest=fine.cpu().numpy())),
+           ("tree", jobs.trainer_job, (1, 1),
+            dict(depth=train.depth, labels=train.labels, **tree_kw))]
+    res = launch.spawn(jobs.run_jobs, 1, device="cuda", args=(run,))[0]
+    single = B1(inp.golden, fine).cpu().numpy()
+    trainer = DecisionTreeTrainer(2, 64, device=dev)
+    trainer.allocate(train, 64, 8)
+    tree = DecisionTree(8, CLASSES)
+    trainer.train(train, tree, rng=np.random.default_rng(17))
+    eval_equal = bool(np.array_equal(res["eval"][0], single))
+    tree_equal = res["tree"][0].tobytes() == tree.data.tobytes()
+    say("mesh_nccl", mesh=res["mesh"][0], eval_equal=eval_equal,
+        tree_equal=tree_equal, pdf_sum_launches=res["eval"][1]["B1_pdf_sum"],
+        b4_launches=res["tree"][1]["B4"])
+    if res["mesh"][0]["backend"] != "nccl" or not (eval_equal and tree_equal):
+        raise AssertionError("the nccl rank differs from one device")
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1412,7 +1618,8 @@ def main():
         inp.intrin)
     b4 = run("b4_vs_plain", phase_b4, inp.intrin, dev)
     b1 = run("b1_vs_plain", phase_b1, inp.model, dev)
-    train_launches = run("train_path", phase_train, inp.intrin, dev, smi)
+    train_launches, train_forest_d16 = run("train_path", phase_train,
+                                           inp.intrin, dev, smi)
     run("train_card_vs_cpu", phase_train_card_vs_cpu, inp.intrin, dev)
     run("train_streaming", phase_train_streaming, inp.intrin, dev)
     tables, probe_launches = run("probes_path", phase_probes_path, smi)
@@ -1427,6 +1634,11 @@ def main():
     run("stereo_path", phase_stereo_path, dev, smi)
     run("warp_path", phase_warp_path, dev, smi)
     run("grouping_path", phase_grouping_path, inp, smi)
+    pdf_sum = run("pdf_sum_vs_plain", phase_pdf_sum, inp.model, dev)
+    mesh_launches = run("mesh_path", phase_mesh_path, inp, smi,
+                        train_forest_d16)
+    run("mesh_nccl", phase_mesh_nccl, inp, dev)
+    run("mesh_dryrun", dryrun_multichip, 4, "cuda")
     kernels = [
         entry("evaluate_layered_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],
@@ -1440,6 +1652,11 @@ def main():
         entry("train_feature_bits_cuda", "train_features.cu",
               "beats3d_tpu/ops/train_features_pallas.py:191 and :238",
               train_launches[0], b4),
+        entry("evaluate_forest_pdf_sum_cuda", "forest_eval.cu",
+              "beats3d_tpu/ops/forest_eval_pallas.py:1940 (pdf sums; JAX's "
+              "mesh path runs forest_eval.py:82)", mesh_launches,
+              dict(pdf_sum["golden_r1"], max_abs_err=max(
+                  v["max_abs_err"] for v in pdf_sum.values()))),
     ] + run("probe_bounds", probe_entries, dev, probe_res, probe_launches)
     say("wall_seconds", **walls)
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,9 @@ import fixtures
 
 from beats3d_tpu_torch import kernel_bench
 from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.ops import (cuda_lib, forest_eval_cuda, points,
-                                   preproc_cuda, train_features,
+from beats3d_tpu_torch.models.forest import PackedForest
+from beats3d_tpu_torch.ops import (cuda_lib, forest_eval, forest_eval_cuda,
+                                   points, preproc_cuda, train_features,
                                    train_features_cuda)
 from beats3d_tpu_torch.train.proposals import make_random_features
 
@@ -463,6 +464,102 @@ def test_forest_kernel_rejects_bad_input(rng_np, cuda_dev):
         k(depth, flat.to(cuda_dev), labels_reduce=2,
           filter_images=torch.zeros((1, 8, 8), dtype=torch.int64,
                                     device=cuda_dev))
+
+
+def _pdf_sum_same_as_plain(depth, flat, **kw):
+    """B1's pdf-sum mode against the plain forest_pdf_sum: eligibility
+    equal, sums and all_done bit-equal on eligible pixels; sums 0 and
+    all_done True elsewhere."""
+    k = forest_eval_cuda.forest_pdf_sum_cuda
+    before = k.launches
+    pdf, elig, done = k(depth, flat, **kw)
+    want = forest_eval.forest_pdf_sum(
+        depth, PackedForest.from_flat(flat).tables(), **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert pdf.dtype == torch.float32 and elig.dtype == done.dtype == torch.bool
+    pdf, elig, done = (t.cpu().numpy() for t in (pdf, elig, done))
+    w_pdf, w_elig, w_done = (t.cpu().numpy() for t in want)
+    np.testing.assert_array_equal(elig, w_elig)
+    assert (pdf.view(np.uint32)[elig].tobytes()
+            == w_pdf.view(np.uint32)[elig].tobytes())
+    np.testing.assert_array_equal(done[elig], w_done[elig])
+    assert not pdf[~elig].any() and done[~elig].all()
+    return pdf, elig, done
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trees,levels,classes,r,scale,n", [
+    (1, 16, 7, 1, 1.0, 1), (2, 16, 7, 1, 1.0, 3), (3, 6, 1, 2, 0.5, 1),
+    (4, 8, 8, 2, 1.0, 3), (5, 5, 9, 1, 2.0, 1), (16, 4, 16, 2, 1.0, 3)])
+def test_forest_pdf_sum_kernel_matches_plain(rng_np, cuda_dev, trees, levels,
+                                             classes, r, scale, n):
+    """B1's pdf-sum mode: T = 1-5 and 16, C = 1 to 16, walks that end after
+    the last level (all_done False), r = 1, 2, scale != 1."""
+    flat = torch.as_tensor(_deep_forest(rng_np, trees, levels, classes,
+                                        deep_walk=True)).to(cuda_dev)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, n, 38, 94))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    _, elig, done = _pdf_sum_same_as_plain(depth, flat.contiguous(),
+                                           labels_reduce=r, scale_factor=scale)
+    assert elig.any() and not elig.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard,r,scale", [
+    (None, 1, 1.0), (0, 1, 1.0), (1, 1, 1.0), (None, 2, 0.5)])
+def test_forest_pdf_sum_kernel_flagship_golden(cuda_dev, shard, r, scale):
+    """chip_smoke's pdf_sum_vs_plain cases: the flagship fine forest (T=4,
+    D=16, C=7) on the 2 golden 480x848 frames at r=1, its 2-tree shards,
+    and r=2 at scale 0.5."""
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    m = LayeredDecisionForest.load(os.path.join(FLAGSHIP, "model_cfg.json"),
+                                   labels_reduce=2, device=cuda_dev)
+    flat = m.layers[1].flat
+    if shard is not None:
+        flat = flat[2 * shard: 2 * shard + 2].contiguous()
+    depth = torch.as_tensor(data["depth"]).to(cuda_dev).to(torch.int32)
+    _pdf_sum_same_as_plain(depth.contiguous(), flat, labels_reduce=r,
+                           scale_factor=scale)
+
+
+@pytest.mark.cuda
+def test_forest_pdf_sum_kernel_rejects_bad_input(rng_np, cuda_dev):
+    flat = torch.as_tensor(fixtures.random_forest_flat(rng_np, 2, 4, 5))
+    depth = torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda_dev)
+    k = forest_eval_cuda.forest_pdf_sum_cuda
+    with pytest.raises(ValueError):
+        k(depth, flat)                                  # forest on the CPU
+    with pytest.raises(ValueError):
+        k(depth.to(torch.int16), flat.to(cuda_dev))
+    with pytest.raises(ValueError):
+        k(depth, torch.zeros((17, 15, 17), device=cuda_dev))   # 17 trees
+
+
+@pytest.mark.cuda
+def test_tree_sharded_eval_on_two_gloo_ranks(cuda_dev):
+    """Two gloo ranks sharing the card: the flagship fine forest on the
+    golden frames, trees over model (2 per rank) and frames over data,
+    equal to single-device B1; each rank launches the pdf-sum mode once."""
+    from beats3d_tpu_torch.parallel import jobs, launch
+
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    m = LayeredDecisionForest.load(os.path.join(FLAGSHIP, "model_cfg.json"),
+                                   labels_reduce=2, device="cpu")
+    fine = m.layers[1].flat.numpy()
+    kw = dict(depth=data["depth"], forest=fine)
+    res = launch.spawn(jobs.run_jobs, 2, device="cuda", args=([
+        ("trees", jobs.eval_job, (1, 2), kw),
+        ("frames", jobs.eval_job, (2, 1), kw)],))
+    depth = torch.as_tensor(data["depth"]).to(cuda_dev).to(torch.int32)
+    want = forest_eval_cuda.evaluate_forest_cuda(
+        depth.contiguous(), torch.as_tensor(fine).to(cuda_dev)).cpu().numpy()
+    for per_rank in res:
+        for case in ("trees", "frames"):
+            labels, launches, sent, _ = per_rank[case]
+            np.testing.assert_array_equal(labels, want)
+            assert launches["B1_pdf_sum"] == 1 and launches["B1"] == 0
+            assert sent > 0
 
 
 # ------------------------------------------------ the scripts/ probes (P1-P12)

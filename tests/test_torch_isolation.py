@@ -45,7 +45,12 @@ def test_import_loads_no_jax():
         "beats3d_tpu_torch.utils.orbit_html, beats3d_tpu_torch.utils.logging, "
         "beats3d_tpu_torch.runtime.bagfile, beats3d_tpu_torch.runtime.viewer, "
         "beats3d_tpu_torch.native, beats3d_tpu_torch.native.grouping, "
-        "beats3d_tpu_torch.ops.stereo, beats3d_tpu_torch.ops.warp\n"
+        "beats3d_tpu_torch.ops.stereo, beats3d_tpu_torch.ops.warp, "
+        "beats3d_tpu_torch.parallel, beats3d_tpu_torch.parallel.__main__, "
+        "beats3d_tpu_torch.parallel.mesh, beats3d_tpu_torch.parallel.launch, "
+        "beats3d_tpu_torch.parallel.eval_sharded, "
+        "beats3d_tpu_torch.parallel.train_sharded, "
+        "beats3d_tpu_torch.parallel.jobs, beats3d_tpu_torch.parallel.dryrun\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
         "apps.run_live_torch, apps.live_data_convert_torch, "
         "apps.pose_fit_torch, apps.merge_datasets_torch, apps.bz3d_torch, "
@@ -80,7 +85,11 @@ def test_sources_import_no_jax():
                  "data/datagen.py", "data/rigged.py", "data/merge.py",
                  "utils/transforms.py", "utils/orbit_html.py",
                  "utils/logging.py", "runtime/bagfile.py", "runtime/viewer.py",
-                 "native/grouping.py", "ops/stereo.py", "ops/warp.py"):
+                 "native/grouping.py", "ops/stereo.py", "ops/warp.py",
+                 "parallel/__init__.py", "parallel/__main__.py",
+                 "parallel/mesh.py", "parallel/launch.py",
+                 "parallel/eval_sharded.py", "parallel/train_sharded.py",
+                 "parallel/jobs.py", "parallel/dryrun.py"):
         assert os.path.join(PKG, name) in files, name
     for path in files:
         with open(path) as f:
