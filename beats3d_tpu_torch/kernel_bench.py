@@ -92,15 +92,14 @@ class BenchInputs:
 
 
 def hand_crops(pipe, frames, plane):
-    """The pipeline's own per-hand 448x512 crops of each frame."""
+    """The pipeline's own per-hand 448x512 crops of each frame whose hands
+    fit the crop window, cut at the device-side origins."""
     cfg = pipe.cfg
     h, w = frames.shape[1:]
-    depth1 = pl._band_gauss(frames, plane, pipe, cfg)
-    grown, _, _ = pl._front_rest(depth1, pipe.group_min_size, cfg)
-    origins = pl._crop_origins(grown, cfg, h, w)
-    crops = [pl._stencil_crops(depth1[i], grown[i], oys, oxs, cfg, h, w)
-             for i, (oys, oxs, too_big) in enumerate(origins) if not too_big]
-    return torch.cat(crops).contiguous()
+    depth1, grown, _, _ = pl._front(pipe, frames, plane)
+    oys, oxs, too_big = pl._crop_origins(grown, cfg, h, w)
+    crops = pl._stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
+    return crops[~too_big].reshape(-1, cfg.crop_h, cfg.crop_w).contiguous()
 
 
 class HostStreamPlane(plane_ops.CalibratedPlane):
@@ -147,6 +146,37 @@ def k1_shapes(inp: BenchInputs):
     call's 32, and the golden frames."""
     return {"live": inp.crops[:2].contiguous(), "batch": inp.crops,
             "golden": inp.golden}
+
+
+def oversized(scene, intrin):
+    """A copy of an 848x480 bench scene with a 520x400 px blob 40 mm above
+    the table across its left half: a hand too big for the 448x512 crop
+    window, which the pipeline evaluates full-frame."""
+    big = scene.copy()
+    yy, xx = np.mgrid[0:intrin.height, 0:intrin.width].astype(np.float32)
+    blob = (((xx - 0.45 * intrin.width) / 260.0) ** 2
+            + ((yy - 0.5 * intrin.height) / 200.0) ** 2) < 1.0
+    big[blob] = (big[blob].astype(np.int64) - 400).clip(1).astype(np.uint16)
+    return big
+
+
+def serpentine(h=60, w=106):
+    """(h, w) bool mask of one component snaking row by row: union-find's
+    slowest shape for neighbour propagation."""
+    m = np.zeros((h, w), bool)
+    for r in range(0, h, 2):
+        m[r, :] = True
+        if r + 1 < h:
+            m[r + 1, -1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def mipmap_masks(inp: BenchInputs):
+    """(16, 60, 106) bool: the bench scenes' group masks at the pipeline's
+    grouping size (K2's output at the 1/8 mipmap level, > 0)."""
+    cfg = inp.pipe.cfg
+    depth1 = pl._band_gauss(inp.frames, inp.plane, inp.pipe, cfg)
+    return points.shrink_image(depth1, cfg.depth_mm_level) > 0
 
 
 def hand_frames(intrin, seeds):

@@ -1,13 +1,17 @@
 """Connected components + two-hand group selection on the device (counterpart
 of beats3d_tpu/ops/components.py).
 
-Algorithm: union-find to a fixpoint.  Each round runs 8 neighbour-min
-propagations (shifts only), then two pointer-jumping compressions
-``lab = lab[lab]`` (an index gather; the JAX package's one-hot matmul gather
-is a TPU workaround).  Labels converge to the minimum linear index of each
-4-connected component, whatever the order of work, so the result equals the
-JAX package's exactly.  The fixpoint test is one device->host sync per
-round.
+Labelling: :func:`label_components` launches the union-find kernel
+(csrc/components.cu) for CUDA tensors, the counterpart of the JAX package's
+``lax.while_loop``: the loop runs to its fixpoint on the card, one block
+per image, with no host read.  For CPU tensors it runs the plain version,
+:func:`label_components_plain`: union-find to a fixpoint in rounds of 8
+neighbour-min propagations (shifts only) and two pointer-jumping
+compressions ``lab = lab[lab]`` (an index gather; the JAX package's one-hot
+matmul gather is a TPU workaround), with its fixpoint test read on the host
+once per round.  Labels converge to the minimum linear index of each
+4-connected component, whatever the order of work, so both equal the JAX
+package's exactly.  There is no fallback from one to the other.
 
 Selection: components of size <= pct_thresh * num_pixels are discarded;
 among the rest, the largest with centroid x < W/2 becomes group 1 ("right
@@ -23,9 +27,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import cuda_lib
 
-def label_components(mask):
-    """4-connected component labels of a boolean mask (..., H, W).
+# One block's shared memory on the H100 (227 KB) holds the kernel's int32
+# labels of one image.
+MAX_PIXELS = 232448 // 4
+
+
+def label_components_plain(mask):
+    """The union-find kernel's plain version, on any device: 4-connected
+    component labels of a boolean mask (..., H, W).
 
     Returns int64 labels of the same shape: for mask pixels the linear index
     (within its image) of the component root, the minimum index of the
@@ -67,13 +78,47 @@ def label_components(mask):
     return lab.reshape(*lead, h, w)
 
 
+def label_components(mask):
+    """4-connected component labels of a boolean mask (..., H, W), as
+    :func:`label_components_plain` returns them: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor.
+
+    On CUDA: an image of more than ``MAX_PIXELS`` pixels raises ValueError;
+    returns int64 (the kernel writes the labels of one image per block).
+    """
+    if mask.device.type != "cuda":
+        return label_components_plain(mask)
+    lead = mask.shape[:-2]
+    h, w = mask.shape[-2:]
+    if h * w > MAX_PIXELS:
+        raise ValueError(
+            f"label_components: a {h}x{w} image has {h * w} pixels; the "
+            f"kernel holds at most {MAX_PIXELS} (one block's 227 KB of shared "
+            "memory as int32 labels)")
+    m = mask.reshape(-1, h, w).to(torch.bool).contiguous()
+    out = torch.empty(m.shape, dtype=torch.int64, device=mask.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.b3d_label_components(m.data_ptr(), out.data_ptr(),
+                                          m.shape[0], h, w, stream)
+    cuda_lib.check(status, "label_components")
+    label_components.launches += 1
+    return out.reshape(*lead, h, w)
+
+
+# Kernel launches so far (the CPU path does not count).
+label_components.launches = 0
+
+
 def make_hand_groups(depth_small, pct_thresh):
     """Connected components on a small depth image + left/right hand
     selection.
 
     depth_small: (..., H, W) integer depth (the 1/8 mipmap level).
     pct_thresh: minimum component size as a fraction of the image (strictly
-    greater passes).
+    greater passes): a number, or a float32 scalar tensor on the depth's
+    device (the pipeline's ``gms``), which a CUDA graph reads in place.
 
     Returns groups (..., H, W) in the depth's dtype (1 right-hand component,
     2 left-hand component, 0 elsewhere) and g_info (..., 2, 3) float32 rows
@@ -90,7 +135,8 @@ def make_hand_groups(depth_small, pct_thresh):
     seg = labels.reshape(b, n).clamp(max=n - 1)
     ones = mask.reshape(b, n).to(torch.float32)
     xs = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
-    ys = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
+    ys = torch.arange(h, dtype=torch.float32, device=dev).view(h, 1).expand(
+        h, w).reshape(-1)
 
     def seg_sum(vals):
         return torch.zeros((b, n), dtype=torch.float32, device=dev).scatter_add_(
@@ -103,9 +149,14 @@ def make_hand_groups(depth_small, pct_thresh):
     cx = sx / safe_sizes
     cy = sy / safe_sizes
 
-    n_f = torch.tensor(float(n), dtype=torch.float32, device=dev)
-    surviving = sizes / n_f > torch.tensor(
-        float(pct_thresh), dtype=torch.float32, device=dev)
+    # both as device scalars made by a fill, not copied from the host: a
+    # CUDA graph captures the fill; the division stays IEEE (a Python
+    # divisor goes through its reciprocal on CUDA)
+    n_f = torch.full((), float(n), dtype=torch.float32, device=dev)
+    if not torch.is_tensor(pct_thresh):
+        pct_thresh = torch.full((), float(pct_thresh), dtype=torch.float32,
+                                device=dev)
+    surviving = sizes / n_f > pct_thresh
     is_right = cx < (w / 2.0)
     right_score = torch.where(surviving & is_right, sizes, 0.0)
     left_score = torch.where(surviving & ~is_right, sizes, 0.0)

@@ -7,9 +7,11 @@ float32 with w == 1 marking a valid point.  Functions take uint16 (the JAX
 package's dtype) or the int32 the pipeline carries, compute in int32 /
 float32, and return images in their input's dtype.
 
-The JAX package's ``crop_mm`` / ``scatter_mm`` (one-hot matmuls that keep
-dynamic crops on the TPU's matrix unit) have no counterpart: the port crops
-by slicing and places crops by slice assignment, which is bit-identical.
+Crops at origins that live on the device: :func:`crop` and :func:`place`
+are the counterparts of the JAX package's ``crop_mm`` and ``scatter_mm``.
+Those keep dynamic crops on the TPU's matrix unit as one-hot matmuls; here
+they are index arithmetic and one ``gather`` each, bit-identical, with no
+host read of the origins.
 
 Divisions by intrinsics go through tensors, never Python scalars: CUDA
 computes ``tensor / python_float`` as a multiplication by the reciprocal,
@@ -188,11 +190,47 @@ def stencil_depth_image_by_group(groups_small, depth, mipmap_level: int,
                                  group: int):
     """Full-res depth where the low-res group image == group, else 0."""
     f = 1 << mipmap_level
-    g_full = groups_small.repeat_interleave(f, dim=-2).repeat_interleave(
-        f, dim=-1)
+    *lead, hs, ws = groups_small.shape
+    g_full = groups_small[..., :, None, :, None].expand(
+        *lead, hs, f, ws, f).reshape(*lead, hs * f, ws * f)
     g_full = g_full[..., : depth.shape[-2], : depth.shape[-1]]
     return torch.where(g_full.to(torch.int32) == group,
                        depth.to(torch.int32), 0).to(depth.dtype)
+
+
+def crop(img, oy, ox, ch: int, cw: int):
+    """(ch, cw) windows of ``img`` (N, H, W) at origins ``oy``, ``ox`` (N,)
+    integer tensors on its device: the counterpart of
+    beats3d_tpu/ops/points.py:crop_mm.  Window pixels outside the image are
+    0, as crop_mm's empty one-hot rows make them.  Returns (N, ch, cw) in
+    the image's dtype."""
+    n, h, w = img.shape
+    dev = img.device
+    ys = oy.to(torch.int64)[:, None] + torch.arange(ch, device=dev)
+    xs = ox.to(torch.int64)[:, None] + torch.arange(cw, device=dev)
+    inside = (((ys >= 0) & (ys < h))[:, :, None]
+              & ((xs >= 0) & (xs < w))[:, None, :])
+    lin = ys.clamp(0, h - 1)[:, :, None] * w + xs.clamp(0, w - 1)[:, None, :]
+    out = torch.gather(img.reshape(n, h * w), 1, lin.reshape(n, -1))
+    return torch.where(inside, out.reshape(n, ch, cw), 0).to(img.dtype)
+
+
+def place(fill, img, oy, ox, hh: int, ww: int):
+    """Each (ch, cw) image of ``img`` (N, ch, cw) on an (hh, ww) canvas of
+    ``fill`` at origins ``oy``, ``ox`` (N,) integer tensors on its device:
+    the counterpart of beats3d_tpu/ops/points.py:scatter_mm, the inverse of
+    :func:`crop`.  Each canvas pixel gathers its image pixel; image pixels
+    that fall outside the canvas are dropped, as in scatter_mm.  Returns
+    (N, hh, ww) in the image's dtype."""
+    n, ch, cw = img.shape
+    dev = img.device
+    ys = torch.arange(hh, device=dev) - oy.to(torch.int64)[:, None]
+    xs = torch.arange(ww, device=dev) - ox.to(torch.int64)[:, None]
+    inside = (((ys >= 0) & (ys < ch))[:, :, None]
+              & ((xs >= 0) & (xs < cw))[:, None, :])
+    lin = ys.clamp(0, ch - 1)[:, :, None] * cw + xs.clamp(0, cw - 1)[:, None, :]
+    out = torch.gather(img.reshape(n, ch * cw), 1, lin.reshape(n, -1))
+    return torch.where(inside, out.reshape(n, hh, ww), fill).to(img.dtype)
 
 
 def flip_x(img):
@@ -209,6 +247,27 @@ def convert_0s_to_maxuint(depth):
     return torch.where(di == 0, MAX_UINT16, di).to(depth.dtype)
 
 
+def write_pixel_groups_to_stencil_image(coords, num_coords, shape):
+    """Scatter the first ``num_coords`` rows of an (M, 3) list of
+    (y, x, gid) into a zeroed (H, W) uint16 stencil, the largest gid where
+    rows meet (counterpart of beats3d_tpu/ops/points.py:
+    write_pixel_groups_to_stencil_image).  As in JAX's scatter, a negative
+    coordinate counts once from the end and a row outside the image is
+    dropped."""
+    h, w = shape
+    c = torch.as_tensor(coords).to(torch.int64)
+    valid = torch.arange(c.shape[0], device=c.device) < torch.as_tensor(
+        num_coords, device=c.device)
+    yy = torch.where(c[:, 0] < 0, c[:, 0] + h, c[:, 0])
+    xx = torch.where(c[:, 1] < 0, c[:, 1] + w, c[:, 1])
+    keep = valid & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    lin = torch.where(keep, yy * w + xx, 0)
+    gid = torch.where(keep, c[:, 2], 0).to(torch.int32)
+    out = torch.zeros(h * w, dtype=torch.int32, device=c.device)
+    out.scatter_reduce_(0, lin, gid, reduce="amax")
+    return out.reshape(h, w).to(torch.uint16)
+
+
 def make_rgba_from_labels(labels, colors):
     """Label id -> RGBA through the colour table (classes, 4) uint8; labels
     0 and 65535 stay transparent black."""
@@ -217,3 +276,25 @@ def make_rgba_from_labels(labels, colors):
     valid = (l != 0) & (l != MAX_UINT16)
     idx = (l - 1).clamp(0, colors.shape[0] - 1)
     return torch.where(valid[..., None], colors[idx], 0).to(torch.uint8)
+
+
+def make_depth_rgba(depth, d_min, d_max):
+    """Depth -> (..., H, W, 4) uint8 grayscale debug view with sentinel
+    colours for missing (0), far (65535) and out-of-range depth
+    (counterpart of beats3d_tpu/ops/points.py:make_depth_rgba).  The grey
+    level floor(256 - (d - d_min) * 255 / (d_max - d_min)) is computed in
+    float32 with an IEEE division and saturates into uint8 (NaN -> 0), as
+    XLA converts it."""
+    dev = depth.device
+    di = depth.to(torch.int32)
+    d = di.to(torch.float32)
+    n_f = (d - _f32(d_min, dev)) * 255.0 / _f32(np.float32(d_max - d_min), dev)
+    gray = torch.nan_to_num(torch.floor(256.0 - n_f), nan=0.0).clamp(0.0, 255.0)
+    gray = gray.to(torch.uint8)
+    out = torch.stack([gray, gray, gray, torch.full_like(gray, 255)], dim=-1)
+    colour = lambda *c: torch.tensor(c, dtype=torch.uint8, device=dev)
+    out = torch.where((di == 0)[..., None], colour(195, 157, 152, 255), out)
+    out = torch.where((di == MAX_UINT16)[..., None],
+                      colour(157, 195, 152, 255), out)
+    in_mid = (di != 0) & (di != MAX_UINT16) & ((di < d_min) | (di > d_max))
+    return torch.where(in_mid[..., None], colour(157, 152, 195, 255), out)

@@ -85,7 +85,9 @@ def train_step_job(mesh, depth, labels, nodes, props, state, **kw):
 def batch_job(mesh, model_cfg, intrin, cfg, frames, plane, *,
               group_min_size: float, axis: str = "data"):
     """``FramePipeline.batch_sharded`` with the layered model of
-    ``model_cfg`` (a cfg.json path) loaded on this rank's device."""
+    ``model_cfg`` (a cfg.json path) loaded on this rank's device; its
+    outputs and ``graph_replays``, the pipeline's CUDA graph replays on this
+    rank (0 on the CPU)."""
     from ..models import LayeredDecisionForest
     from ..runtime.pipeline import FramePipeline
 
@@ -93,7 +95,8 @@ def batch_job(mesh, model_cfg, intrin, cfg, frames, plane, *,
                                        device=mesh.device)
     pipe = FramePipeline(model, intrin, cfg=cfg, group_min_size=group_min_size)
     out = pipe.batch_sharded(frames, plane, mesh, axis=axis)
-    return {k: _np(v) for k, v in out.items()}
+    return dict({k: _np(v) for k, v in out.items()},
+                graph_replays=np.int64(pipe.replays))
 
 
 def trainer_job(mesh, depth, labels, *, num_classes: int, images_per_block: int,

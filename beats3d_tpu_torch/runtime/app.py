@@ -2,9 +2,11 @@
 beats3d_tpu/runtime/app.py).
 
 Camera frames in, MIDI note events out.  The per-frame compute is
-:class:`..runtime.pipeline.FramePipeline` on the model's device; this module
-owns the host state: plane calibration policy, camera warm-up, tap state
-machines, MIDI and profiling.
+:class:`..runtime.pipeline.FramePipeline` on the model's device (on CUDA a
+replayed CUDA graph); this module owns the host state: plane calibration
+policy, camera warm-up, tap state machines, MIDI and profiling.  On CUDA a
+tick copies its frame up through pinned memory without waiting and makes
+one device->host copy, the tap update's.
 """
 
 from __future__ import annotations
@@ -45,6 +47,36 @@ class AppConfig:
     # machines, so MIDI events trail the camera by one frame, as in the JAX
     # application.
     pipelined: bool = True
+
+
+class PinnedUpload:
+    """Host frames -> int32 depth on a CUDA device without waiting for the
+    frames already queued: each frame is staged in one of two pinned host
+    buffers and copied with ``non_blocking=True`` (a copy from pageable
+    memory would first wait for the stream).  A buffer is rewritten only
+    once the copy that last read it has finished, which its event tells;
+    in steady state it has, long before."""
+
+    def __init__(self, device):
+        self.device = device
+        self._slots = [[None, None], [None, None]]   # [buffer, its event]
+        self._next = 0
+
+    def __call__(self, frame):
+        src = torch.as_tensor(frame)
+        slot = self._slots[self._next]
+        self._next ^= 1
+        buf, done = slot
+        if done is not None and not done.query():
+            done.synchronize()
+        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+            buf = slot[0] = torch.empty(src.shape, dtype=src.dtype,
+                                        pin_memory=True)
+        buf.copy_(src)
+        dev = buf.to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return dev.to(torch.int32)
 
 
 class BeatsApp:
@@ -104,12 +136,16 @@ class BeatsApp:
         self.last_out = None
         self.host_out = None    # last_out's heights, tip_valid, guard_muted
         self._pending = None  # previous frame's output (pipelined mode)
+        self._upload = (PinnedUpload(self.device)
+                        if self.device.type == "cuda"
+                        else self.pipeline.as_depth)
+        self._host_flat = None  # pinned landing buffer of _fetch
 
     # -- per-frame ------------------------------------------------------------
     def tick(self, frame) -> Optional[dict]:
         self.frame_times.tick()
         self.timer.record("upload")
-        depth = self.pipeline.as_depth(frame.depth)
+        depth = self._upload(frame.depth)
 
         if self.frame_num < self.cfg.warmup_frames:
             self.frame_num += 1
@@ -131,6 +167,11 @@ class BeatsApp:
         # live tunables that feed the device program
         self.pipeline.group_min_size = self.cfg.group_min_size
 
+        # pipelined: the previous frame's one host copy is queued before
+        # this frame's program, so it waits for that frame only
+        fetched = (self._fetch(self._pending)
+                   if self.cfg.pipelined and self._pending is not None
+                   else None)
         self.timer.record("frame_step")
         out = self.pipeline(depth, self.calibrated_plane.get_mat())
 
@@ -143,7 +184,7 @@ class BeatsApp:
                 return None
 
         self.timer.record("host update")
-        self._host_update(out)
+        self._host_update(out, fetched)
         self.timer.stop()
 
         if not self.cfg.pipelined:
@@ -151,15 +192,33 @@ class BeatsApp:
         self.last_out = out
         return out
 
-    def _host_update(self, out):
-        """Tap state machines + MIDI from one frame's outputs, fetched to
-        the host in one copy, kept as ``host_out`` (the viewer reads it)."""
-        shape = out["heights"].shape
-        n = out["heights"].numel()
+    def _fetch(self, out):
+        """Queue one frame's heights, tip_valid and guard_muted to the host
+        in one copy; returns (host tensor, event marking its arrival or
+        None on the CPU)."""
         flat = torch.cat([out["heights"].reshape(-1),
                           out["tip_valid"].reshape(-1).to(torch.float32),
                           out["guard_muted"].to(torch.float32)])
-        flat = flat.cpu().numpy()
+        if flat.device.type != "cuda":
+            return flat, None
+        if self._host_flat is None or self._host_flat.shape != flat.shape:
+            self._host_flat = torch.empty(flat.shape, dtype=flat.dtype,
+                                          pin_memory=True)
+        self._host_flat.copy_(flat, non_blocking=True)
+        arrived = torch.cuda.Event()
+        arrived.record()
+        return self._host_flat, arrived
+
+    def _host_update(self, out, fetched=None):
+        """Tap state machines + MIDI from one frame's outputs, fetched to
+        the host in one copy (``fetched``: that copy, already queued), kept
+        as ``host_out`` (the viewer reads it)."""
+        shape = out["heights"].shape
+        n = out["heights"].numel()
+        host, arrived = fetched or self._fetch(out)
+        if arrived is not None:
+            arrived.synchronize()
+        flat = host.numpy().copy()
         heights = flat[:n].reshape(shape)
         valid = flat[n:2 * n].reshape(shape) != 0
         self.host_out = dict(heights=heights, tip_valid=valid,

@@ -15,10 +15,14 @@ One depth frame in, fingertip heights out:
 
 The tap-detection state machine and MIDI stay on the host (runtime.app).
 
-PyTorch runs this eagerly.  The JAX program's ``lax.cond``s become host
-branches, each one device->host sync per frame: the crop-window check (and,
-batched, the rescue count), plus one per union-find round in
-``components``.  ``vmap`` becomes an explicit batch dimension.
+The frame programs (:func:`frame_step`, and for the batched call
+``_batched_crop_program`` / ``_batched_full_program``) read nothing back to
+the host: crop origins, the crop-or-full choice, the budgeted rescue and
+union-find's fixpoint all stay on the device.  On CUDA, FramePipeline
+captures each program once per input shape as a CUDA graph and replays it
+(the counterpart of ``jax.jit``); the batched call makes one 4-byte read,
+whether to run every frame full-frame.  ``vmap`` becomes an explicit batch
+dimension.
 
 Depth is carried as int32 inside (PyTorch's uint16 support is thin); the
 outputs keep the JAX program's dtypes.  The backend follows the model's
@@ -86,9 +90,7 @@ def _fingertip_heights(raw_depth, means, plane_mat, pipe, cfg):
     """
     b, h, w = raw_depth.shape
     num_classes = means.shape[-2]
-    dev = raw_depth.device
-    sel = torch.tensor(cfg.fingertip_label_ids, dtype=torch.int64,
-                       device=dev) - 1
+    sel = pipe.tip_rows
     # a tip id beyond the model's class count comes out invalid
     in_range = sel < num_classes
     m = means[..., sel.clamp(0, num_classes - 1), :]      # (B, 2, F, 2)
@@ -145,19 +147,22 @@ def _full_stencils(depth1, grown, cfg):
 
 
 def _stencil_crops(depth1, grown, oys, oxs, cfg, h, w):
-    """Per-hand stencilled (2, crop_h, crop_w) crops cut straight from one
-    frame's depth1 / grown at host-side origins; the left hand's
-    (mirrored-space) origin maps to an unmirrored slice flipped after
-    stencilling.  Bit-identical to cropping _full_stencils."""
+    """Per-hand stencilled (B, 2, crop_h, crop_w) crops cut straight from
+    depth1 (B, H, W) / grown (B, Hs, Ws) at the device-side origins
+    ``oys``, ``oxs`` (B, 2); the left hand's (mirrored-space) origin maps to
+    an unmirrored window flipped after stencilling.  Bit-identical to
+    cropping _full_stencils."""
     f = 1 << cfg.depth_mm_level
     ch, cw = cfg.crop_h, cfg.crop_w
     out = []
-    for gid, oy, ox in ((1, oys[0], oxs[0]), (2, oys[1], w - cw - oxs[1])):
-        d = depth1[oy:oy + ch, ox:ox + cw]
-        g = grown[oy // f:(oy + ch) // f, ox // f:(ox + cw) // f]
-        s = points.stencil_depth_image_by_group(g, d, cfg.depth_mm_level, gid)
-        out.append(s if gid == 1 else points.flip_x(s))
-    return points.convert_0s_to_maxuint(torch.stack(out))
+    for hand, ox in ((0, oxs[:, 0]), (1, w - cw - oxs[:, 1])):
+        oy = oys[:, hand]
+        d = points.crop(depth1, oy, ox, ch, cw)
+        g = points.crop(grown, oy // f, ox // f, ch // f, cw // f)
+        s = points.stencil_depth_image_by_group(g, d, cfg.depth_mm_level,
+                                                hand + 1)
+        out.append(points.flip_x(s) if hand else s)
+    return points.convert_0s_to_maxuint(torch.stack(out, dim=1))
 
 
 def _spread_tiles(depth_imgs, r, cfg):
@@ -188,43 +193,38 @@ def _incoherent_images(depth_imgs, r, cfg):
 
 def _crop_origins(grown, cfg, h, w):
     """Per-frame, per-hand crop origins around the grown group bbox (the left
-    hand's mirrored) and the exceeds-crop flag, as host ints: one
-    device->host copy for the whole batch.  Origins are multiples of the
-    mipmap factor and of labels_reduce.
+    hand's mirrored) and the exceeds-crop flag, on the device (JAX's
+    ``_crop_origins``).  Origins are multiples of the mipmap factor and of
+    labels_reduce.
 
-    grown (B, Hs, Ws).  Returns a list of ((oy_r, oy_l), (ox_r, ox_l),
-    too_big) per frame.
+    grown (B, Hs, Ws).  Returns oys, oxs (B, 2) int32 and too_big (B,) bool.
     """
     ch, cw = cfg.crop_h, cfg.crop_w
     f = 1 << cfg.depth_mm_level
     if f % cfg.labels_reduce != 0:
         f *= cfg.labels_reduce
+    hs, ws = grown.shape[-2:]
     masks = torch.stack([grown == 1, grown == 2], dim=1)   # (B, 2, Hs, Ws)
-    occ = torch.cat([masks.any(dim=3), masks.any(dim=2)], dim=2).cpu().numpy()
-    hs = grown.shape[1]
+    rows = masks.any(dim=3).to(torch.int32)                # (B, 2, Hs)
+    cols = masks.any(dim=2).to(torch.int32)                # (B, 2, Ws)
+    # argmax of a 0/1 row is its first 1 (0 when there is none)
+    ylo = rows.argmax(dim=-1) * f
+    yhi = ((hs - rows.flip(-1).argmax(dim=-1)) * f).clamp(max=h)
+    xlo = cols.argmax(dim=-1) * f
+    xhi = ((ws - cols.flip(-1).argmax(dim=-1)) * f).clamp(max=w)
+    # the left hand's stencil is mirrored, so is its bbox
+    xlo, xhi = (torch.stack([xlo[:, 0], w - xhi[:, 1]], dim=1),
+                torch.stack([xhi[:, 0], w - xlo[:, 1]], dim=1))
 
     def origin(lo, hi, crop, dim):
-        c = min(max((lo + hi - crop) // 2, 0), dim - crop)
-        return (c // f) * f
+        c = ((lo + hi - crop) // 2).clamp(0, dim - crop)
+        return ((c // f) * f).to(torch.int32)
 
-    out = []
-    for frame in occ:
-        oys, oxs, too_big = [], [], False
-        for hand, mirrored in ((0, False), (1, True)):
-            rows, cols = frame[hand, :hs], frame[hand, hs:]
-            ylo = int(np.argmax(rows)) * f
-            yhi = min((len(rows) - int(np.argmax(rows[::-1]))) * f, h)
-            xlo = int(np.argmax(cols)) * f
-            xhi = min((len(cols) - int(np.argmax(cols[::-1]))) * f, w)
-            if mirrored:
-                xlo, xhi = w - xhi, w - xlo
-            oys.append(origin(ylo, yhi, ch, h))
-            oxs.append(origin(xlo, xhi, cw, w))
-            # f-1 slack: origin snapping can shift the window f-1 px left
-            too_big |= bool(rows.any()) and (
-                yhi - ylo > ch - f + 1 or xhi - xlo > cw - f + 1)
-        out.append((tuple(oys), tuple(oxs), too_big))
-    return out
+    present = rows.any(dim=-1)
+    # f-1 slack: origin snapping can shift the window f-1 px left
+    too_big = (present & ((yhi - ylo > ch - f + 1)
+                          | (xhi - xlo > cw - f + 1))).any(dim=1)
+    return origin(ylo, yhi, ch, h), origin(xlo, xhi, cw, w), too_big
 
 
 def _eval_layers(depth_imgs, pipe, cfg, scale):
@@ -244,23 +244,21 @@ def _eval_layers(depth_imgs, pipe, cfg, scale):
     return fast(safe), flags
 
 
-def _place(canvas, crops, oys, oxs, r):
-    """Slice-assign each (ch/r, cw/r) crop label image into its (Hl, Wl)
-    canvas at the crop origin (in place)."""
-    chl, cwl = crops.shape[-2:]
-    for i in range(crops.shape[0]):
-        y0, x0 = oys[i] // r, oxs[i] // r
-        canvas[i, y0:y0 + chl, x0:x0 + cwl] = crops[i]
-    return canvas
+def _place(crops, oys, oxs, r, hl, wl):
+    """(B, 2, ch/r, cw/r) crop label images on (B, 2, Hl, Wl) canvases of
+    65535 at the crop origins (the left hand's in mirrored space)."""
+    b, _, chl, cwl = crops.shape
+    return points.place(MAX_UINT16, crops.reshape(2 * b, chl, cwl),
+                        (oys // r).reshape(-1), (oxs // r).reshape(-1),
+                        hl, wl).reshape(b, 2, hl, wl)
 
 
 def _screen_means(m, oys, oxs, r, wl):
-    """Crop-space modes (2, C, 2) -> screen coordinates: offset by the crop
-    origin; the mirrored left hand maps through x -> wl - 1 - x."""
-    sx = torch.stack([m[0, :, 0] + float(oxs[0] // r),
-                      (wl - 1) - (m[1, :, 0] + float(oxs[1] // r))])
-    sy = torch.stack([m[0, :, 1] + float(oys[0] // r),
-                      m[1, :, 1] + float(oys[1] // r)])
+    """Crop-space modes (B, 2, C, 2) -> screen coordinates: offset by the
+    crop origin; the mirrored left hand maps through x -> wl - 1 - x."""
+    sx = (oxs // r).to(torch.float32)[..., None] + m[..., 0]
+    sy = (oys // r).to(torch.float32)[..., None] + m[..., 1]
+    sx = torch.stack([sx[:, 0], (wl - 1) - sx[:, 1]], dim=1)
     return torch.stack([sx, sy], dim=-1)
 
 
@@ -286,9 +284,72 @@ def _scale(w, cfg):
     return float(np.float32(w) / np.float32(cfg.train_dim_x))
 
 
+def _front(pipe, raw_depth, plane_mat):
+    """(B, H, W) raw depth -> K2, then shrink -> components -> grow."""
+    depth1 = _band_gauss(raw_depth, plane_mat, pipe, pipe.cfg)
+    grown, g_info, groups_small = _front_rest(depth1, pipe.gms, pipe.cfg)
+    return depth1, grown, g_info, groups_small
+
+
+def _full_path(pipe, depth1, grown, keep=None):
+    """Full-frame eval of (B, H, W) frames: labels (B, 2, Hl, Wl), means
+    (B, 2, C, 2), guard_muted (B, 2).  ``keep`` (B,) bool: the frames whose
+    results will be used; the others' stencils are zeroed, so K1 skips
+    their pixels (their results are garbage the caller drops)."""
+    cfg = pipe.cfg
+    b, h, w = depth1.shape
+    r = cfg.labels_reduce
+    hand = _full_stencils(depth1, grown, cfg)
+    if keep is not None:
+        hand = torch.where(keep[:, None, None, None], hand, 0)
+    lab, gf = _eval_layers(hand.reshape(2 * b, h, w), pipe, cfg,
+                           _scale(w, cfg))
+    labels = _unmirror(lab.reshape(b, 2, h // r, w // r))
+    return labels, _run_ms(labels, pipe), gf.reshape(b, 2)
+
+
+def _crop_path(pipe, depth1, grown, oys, oxs, too_big):
+    """Crop eval of (B, H, W) frames at device-side origins; frames whose
+    hand exceeds the crop window get zeroed crops (K1 skips them; the
+    caller takes their results from the full path).  Mean shift runs on
+    the crops; a mirrored image yields the exactly mirrored mode."""
+    cfg = pipe.cfg
+    b, h, w = depth1.shape
+    r = cfg.labels_reduce
+    ch, cw = cfg.crop_h, cfg.crop_w
+    crops = _stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
+    crops = torch.where(too_big[:, None, None, None], 0, crops)
+    lc, gf = _eval_layers(crops.reshape(2 * b, ch, cw), pipe, cfg,
+                          _scale(w, cfg))
+    lc = lc.reshape(b, 2, ch // r, cw // r)
+    labels = _unmirror(_place(lc, oys, oxs, r, h // r, w // r))
+    means = _screen_means(_run_ms(lc, pipe), oys, oxs, r, w // r)
+    return labels, means, gf.reshape(b, 2)
+
+
+def _outputs(pipe, raw_depth, plane_mat, labels, means, gmut, g_info):
+    heights, tip_valid, tip_px = _fingertip_heights(
+        raw_depth, means, plane_mat, pipe, pipe.cfg)
+    return {
+        "labels": labels.to(torch.uint16),
+        "means": means,
+        "heights": heights,
+        "tip_valid": tip_valid,
+        "tip_px": tip_px,
+        "g_info": g_info,
+        "guard_muted": gmut,
+    }
+
+
 def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
-    """One frame -> fingertips.  raw_depth (H, W) int32 and plane_mat
-    (4, 4) float32 on the model's device.
+    """One frame -> fingertips, the eager frame program.  raw_depth (H, W)
+    int32 and plane_mat (4, 4) float32 on the model's device.  It reads
+    nothing back to the host; on CUDA ``FramePipeline.__call__`` replays it
+    from a CUDA graph.
+
+    The crop-or-full choice (JAX's ``lax.cond``) runs both branches and
+    selects on the device: the branch not taken gets zeroed input, so K1
+    skips its pixels.
 
     Returns a dict of tensors:
       labels (2, H//r, W//r) uint16 — per-hand composite labels, screen frame
@@ -302,127 +363,144 @@ def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
     """
     cfg = pipe.cfg
     h, w = raw_depth.shape
-    depth1 = _band_gauss(raw_depth[None], plane_mat, pipe, cfg)
-    grown, g_info, groups_small = _front_rest(depth1, pipe.group_min_size, cfg)
-    depth1, grown, g_info, groups_small = (
-        depth1[0], grown[0], g_info[0], groups_small[0])
-
-    scale = _scale(w, cfg)
-    r = cfg.labels_reduce
-    hl, wl = h // r, w // r
-
-    def eval_full():
-        lab, gf = _eval_layers(_full_stencils(depth1, grown, cfg), pipe, cfg,
-                               scale)
-        labels = _unmirror(lab)
-        return labels, _run_ms(labels, pipe), gf
-
-    use_crop = _use_crop(cfg, h, w)
-    if use_crop:
-        ((oys, oxs, too_big),) = _crop_origins(grown[None], cfg, h, w)
-    if not use_crop or too_big:
-        labels, ms, gmut = eval_full()
+    raw = raw_depth[None]
+    depth1, grown, g_info, groups_small = _front(pipe, raw, plane_mat)
+    if not _use_crop(cfg, h, w):
+        res = _full_path(pipe, depth1, grown)
     else:
-        crops = _stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
-        lc, gmut = _eval_layers(crops, pipe, cfg, scale)
-        canvas = torch.full((2, hl, wl), MAX_UINT16, dtype=lc.dtype,
-                            device=lc.device)
-        labels = _unmirror(_place(canvas, lc, oys, oxs, r))
-        # mean shift on the crops; a mirrored image yields the exactly
-        # mirrored mode
-        ms = _screen_means(_run_ms(lc, pipe), oys, oxs, r, wl)
+        oys, oxs, too_big = _crop_origins(grown, cfg, h, w)
+        cropped = _crop_path(pipe, depth1, grown, oys, oxs, too_big)
+        full = _full_path(pipe, depth1, grown, keep=too_big)
+        res = [torch.where(too_big.view((1,) * c.dim()), f, c)
+               for f, c in zip(full, cropped)]
+    out = _outputs(pipe, raw, plane_mat, *res, g_info)
+    out = {k: v[0] for k, v in out.items()}
+    out["groups_small"] = groups_small[0].to(torch.uint16)
+    return out
 
-    heights, tip_valid, tip_px = _fingertip_heights(
-        raw_depth[None], ms[None], plane_mat, pipe, cfg)
-    return {
-        "labels": labels.to(torch.uint16),
-        "means": ms,
-        "heights": heights[0],
-        "tip_valid": tip_valid[0],
-        "tip_px": tip_px[0],
-        "g_info": g_info,
-        "groups_small": groups_small.to(torch.uint16),
-        "guard_muted": gmut,
-    }
+
+def _batched_crop_program(pipe: "FramePipeline", raw_depth, plane_mat):
+    """The batched call's crop program (JAX's ``crop_then_rescue``): every
+    frame on the crop path, then the frames whose hand exceeds the crop
+    window, up to the static budget fb, re-evaluated full-frame and written
+    back under the ``upd`` mask, all on the device.  Returns frame_step's
+    dict with a leading batch axis (minus groups_small) plus ``nbad``, the
+    () int32 count of oversized frames: when it exceeds fb, the caller runs
+    :func:`_batched_full_program` instead."""
+    cfg = pipe.cfg
+    b, h, w = raw_depth.shape
+    depth1, grown, g_info, _ = _front(pipe, raw_depth, plane_mat)
+    oys, oxs, too_big = _crop_origins(grown, cfg, h, w)
+    labels, means, gmut = _crop_path(pipe, depth1, grown, oys, oxs, too_big)
+    fb = min(cfg.fallback_budget, b)
+    if fb > 0:
+        ar = torch.arange(b, device=raw_depth.device)
+        idx = torch.argsort(torch.where(too_big, ar, b + ar))[:fb]
+        upd = too_big[idx]              # padding rows (clean frames): no-ops
+        rescued = _full_path(pipe, depth1[idx], grown[idx], keep=upd)
+        labels, means, gmut = [
+            c.index_copy(0, idx, torch.where(
+                upd.view((-1,) + (1,) * (c.dim() - 1)), r, c[idx]))
+            for r, c in zip(rescued, (labels, means, gmut))]
+    out = _outputs(pipe, raw_depth, plane_mat, labels, means, gmut, g_info)
+    out["nbad"] = too_big.sum(dtype=torch.int32)
+    return out
+
+
+def _batched_full_program(pipe: "FramePipeline", raw_depth, plane_mat):
+    """The batched call with every frame full-frame (JAX's ``full_path``)."""
+    depth1, grown, g_info, _ = _front(pipe, raw_depth, plane_mat)
+    return _outputs(pipe, raw_depth, plane_mat,
+                    *_full_path(pipe, depth1, grown), g_info)
+
+
+def _batched(pipe, shape, run):
+    """The batched call's policy (JAX's ``lax.cond`` over nbad against the
+    static budget fb): the crop program, then the all-full-frame program
+    when more than fb frames exceed the crop window.  ``run(program)`` runs
+    a program on the call's inputs (eagerly, or by replaying its graph);
+    the count ``nbad`` is the call's one host read, 4 bytes, made after the
+    crop program is queued."""
+    b, h, w = shape
+    if not _use_crop(pipe.cfg, h, w):
+        return run(_batched_full_program)
+    out = run(_batched_crop_program)
+    if out.pop("nbad").item() > min(pipe.cfg.fallback_budget, b):
+        out = run(_batched_full_program)
+    return out
 
 
 def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
-    """Many frames -> fingertips: the throughput path.  raw_depth
-    (B, H, W) int32 with one shared (4, 4) plane.
+    """Many frames -> fingertips, the eager batched program: the throughput
+    path.  raw_depth (B, H, W) int32 with one shared (4, 4) plane.
 
     All 2B hand crops run through one layered-eval launch, and mean shift
     runs on the crops.  Up to cfg.fallback_budget frames whose hand exceeds
     the crop window are rescued full-frame in a second launch; with more,
-    the whole batch runs full-frame.  Returns frame_step's dict with a
-    leading batch axis (minus groups_small).
+    the whole batch runs full-frame, decided by one 4-byte read after the
+    crop program is queued.  Returns frame_step's dict with a leading batch
+    axis (minus groups_small).
     """
-    cfg = pipe.cfg
-    b, h, w = raw_depth.shape
-    r = cfg.labels_reduce
-    hl, wl = h // r, w // r
-    ch, cw = cfg.crop_h, cfg.crop_w
+    return _batched(pipe, raw_depth.shape,
+                    lambda program: program(pipe, raw_depth, plane_mat))
 
-    depth1 = _band_gauss(raw_depth, plane_mat, pipe, cfg)
-    grown, g_info, _ = _front_rest(depth1, pipe.group_min_size, cfg)
-    scale = _scale(w, cfg)
 
-    def full_path(idx):
-        hand_depth = _full_stencils(depth1[idx], grown[idx], cfg)
-        lab, gf = _eval_layers(hand_depth.reshape(-1, h, w), pipe, cfg, scale)
-        labels = _unmirror(lab.reshape(-1, 2, hl, wl))
-        return labels, _run_ms(labels, pipe), gf.reshape(-1, 2)
+# The wrappers of the kernels the frame programs launch: a FrameGraph reads
+# their launch counts around its capture to learn its launches per replay.
+FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
+                 preproc_cuda.plane_band_gauss_cuda,
+                 components.label_components)
 
-    def crop_path(origins):
-        # oversized-hand frames (rescued below) get zeroed crops
-        crops = torch.stack([
-            torch.zeros((2, ch, cw), dtype=torch.int32,
-                        device=depth1.device) if too_big
-            else _stencil_crops(depth1[i], grown[i], oys, oxs, cfg, h, w)
-            for i, (oys, oxs, too_big) in enumerate(origins)
-        ])
-        lc, gf = _eval_layers(crops.reshape(2 * b, ch, cw), pipe, cfg, scale)
-        lc = lc.reshape(b, 2, ch // r, cw // r)
-        m = _run_ms(lc, pipe)
-        canvas = torch.full((b, 2, hl, wl), MAX_UINT16, dtype=lc.dtype,
-                            device=lc.device)
-        means = []
-        for i, (oys, oxs, _) in enumerate(origins):
-            _place(canvas[i], lc[i], oys, oxs, r)
-            means.append(_screen_means(m[i], oys, oxs, r, wl))
-        return _unmirror(canvas), torch.stack(means), gf.reshape(b, 2)
 
-    everything = list(range(b))
-    if not _use_crop(cfg, h, w):
-        labels, ms, gmut = full_path(everything)
-    else:
-        origins = _crop_origins(grown, cfg, h, w)
-        bad = [i for i, o in enumerate(origins) if o[2]]
-        if len(bad) > min(cfg.fallback_budget, b):
-            labels, ms, gmut = full_path(everything)
-        else:
-            labels, ms, gmut = crop_path(origins)
-            if bad:
-                lab_r, ms_r, gf_r = full_path(bad)
-                labels[bad] = lab_r
-                ms[bad] = ms_r
-                gmut[bad] = gf_r
+class FrameGraph:
+    """One frame program captured as a CUDA graph for one input shape and
+    replayed per call: the counterpart of ``jax.jit`` over the frame.
 
-    heights, tip_valid, tip_px = _fingertip_heights(
-        raw_depth, ms, plane_mat, pipe, cfg)
-    return {
-        "labels": labels.to(torch.uint16),
-        "means": ms,
-        "heights": heights,
-        "tip_valid": tip_valid,
-        "tip_px": tip_px,
-        "g_info": g_info,
-        "guard_muted": gmut,
-    }
+    ``depth`` and ``plane`` are the static inputs the caller writes before
+    each replay (graphs of one shape share them); the pipeline's ``gms``
+    scalar is read in place.  The program is warmed up once on a side
+    stream, with synchronising calls made errors
+    (``torch.cuda.set_sync_debug_mode``), then captured; a failed capture
+    raises.  The kernel wrappers count the warm-up's launches and the
+    capture's (each records its launch into the graph); a replay goes
+    through no wrapper, so it moves no count.  ``launches``: the graph's
+    kernel launches per replay, by wrapper name; ``replays``: the replays
+    so far.
+    """
+
+    def __init__(self, pipe, program, depth, plane):
+        dev = depth.device
+        mode = torch.cuda.get_sync_debug_mode()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                program(pipe, depth, plane)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [k.launches for k in FRAME_KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = program(pipe, depth, plane)
+        self.launches = {k.__name__: k.launches - n
+                         for k, n in zip(FRAME_KERNELS, before)}
+        self.replays = 0
+
+    def replay(self):
+        """Run the graph on the current stream; returns its outputs cloned,
+        so that they outlive the next replay."""
+        self.graph.replay()
+        self.replays += 1
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 class FramePipeline:
-    """Binds a layered model + intrinsics + tunables to ``frame_step``.
-    Runs on the model's device; holds no per-frame state."""
+    """Binds a layered model + intrinsics + tunables to the frame programs.
+    Runs on the model's device: on CUDA each program is captured once per
+    input shape as a :class:`FrameGraph` and replayed; on the CPU it runs
+    eagerly.  Holds no per-frame state."""
 
     def __init__(
         self,
@@ -452,7 +530,13 @@ class FramePipeline:
             np.asarray(mean_shift_variances, np.float32), device=self.device)
         self.num_classes = model.num_layered_classes
         self.plane_z_threshold = plane_z_threshold
-        self.group_min_size = group_min_size
+        # the mean-shift row of each fingertip label
+        self.tip_rows = torch.tensor(self.cfg.fingertip_label_ids,
+                                     dtype=torch.int64, device=self.device) - 1
+        # group_min_size as a device scalar the frame programs read in place
+        self.gms = torch.full((), float(group_min_size), dtype=torch.float32,
+                              device=self.device)
+        self._gms_value = float(group_min_size)
         # intrinsics as float32 device tensors (divisors stay tensors: CUDA
         # divides by a Python scalar through its reciprocal)
         self.pp = torch.as_tensor(intrinsics.pp, device=self.device)
@@ -460,6 +544,21 @@ class FramePipeline:
                                device=self.device)
         self.fy = torch.tensor(intrinsics.fy, dtype=torch.float32,
                                device=self.device)
+        self.graphs = {}          # (program name, shape) -> FrameGraph
+        self._inputs = {}         # shape -> the graphs' static (depth, plane)
+
+    @property
+    def group_min_size(self) -> float:
+        return self._gms_value
+
+    @group_min_size.setter
+    def group_min_size(self, value: float):
+        """Writes the tunable into ``gms`` in place (a fill on the device,
+        ordered after the frames already queued), only when it changes."""
+        value = float(value)
+        if value != self._gms_value:
+            self.gms.fill_(value)
+            self._gms_value = value
 
     def as_depth(self, raw):
         """A depth frame or batch (tensor or numpy) as int32 on the device."""
@@ -470,15 +569,43 @@ class FramePipeline:
         return torch.as_tensor(plane_mat).to(
             device=self.device, dtype=torch.float32).contiguous()
 
+    def _replay(self, program, depth, plane):
+        """Write the static inputs for depth's shape and replay program's
+        graph, capturing it on first use."""
+        shape = tuple(depth.shape)
+        if shape not in self._inputs:
+            self._inputs[shape] = (
+                torch.zeros(shape, dtype=torch.int32, device=self.device),
+                torch.eye(4, dtype=torch.float32, device=self.device))
+        static_depth, static_plane = self._inputs[shape]
+        static_depth.copy_(depth)
+        static_plane.copy_(plane)
+        key = (program.__name__, shape)
+        if key not in self.graphs:
+            self.graphs[key] = FrameGraph(self, program, static_depth,
+                                          static_plane)
+        return self.graphs[key].replay()
+
+    @property
+    def replays(self) -> int:
+        """Graph replays so far, over every program and shape."""
+        return sum(g.replays for g in self.graphs.values())
+
     def __call__(self, raw_depth, plane_mat):
         """(H, W) depth frame (tensor or numpy) -> see :func:`frame_step`."""
-        return frame_step(self, self.as_depth(raw_depth), self._plane(plane_mat))
+        depth, plane = self.as_depth(raw_depth), self._plane(plane_mat)
+        if self.device.type != "cuda":
+            return frame_step(self, depth, plane)
+        return self._replay(frame_step, depth, plane)
 
     def batch(self, raw_depths, plane_mat):
         """(B, H, W) frames with one shared plane -> see
         :func:`frame_step_batched`."""
-        return frame_step_batched(
-            self, self.as_depth(raw_depths), self._plane(plane_mat))
+        depth, plane = self.as_depth(raw_depths), self._plane(plane_mat)
+        if self.device.type != "cuda":
+            return frame_step_batched(self, depth, plane)
+        return _batched(self, depth.shape,
+                        lambda program: self._replay(program, depth, plane))
 
     def batch_sharded(self, raw_depths, plane_mat, mesh, axis: str = "data"):
         """The throughput path on a mesh of ranks: frames sharded over

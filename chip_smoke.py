@@ -6,14 +6,27 @@
 Builds the port's CUDA kernels from csrc/ and holds each against its plain
 PyTorch version at its path's shapes: K2 bit for bit at B = 1 and 16, K1
 with 0 label mismatches against plain and the flagship golden on the
-golden frames and the pipeline's live (2) and batched (32) hand crops.
+golden frames and the pipeline's live (2) and batched (32) hand crops,
+union-find bit for bit on the 16 scenes' 1/8 mipmaps and the serpentine.
 Then drives the port's paths:
 
+* the frame's CUDA graphs against the eager programs, bit for bit: the 16
+  scenes and an oversized-hand frame, batches with 0, 1 and 3 oversized
+  frames (graph_vs_eager);
 * the live instrument (BeatsApp on the committed flagship model, 848x480
-  synthetic frames, RANSAC plane, ~60 frames) and five batched calls,
-  through K1 (layered forest) and K2 (plane band + gaussian), then 32 live
-  frames and 5 batched calls under torch.profiler for K1's and K2's device
-  time in place; the port's plain path on the CPU on the same frames;
+  synthetic frames, RANSAC plane, a warm tick then 60 timed ticks
+  pipelined and 60 not, median and spread) and five batched calls, each a
+  replayed CUDA graph through K1 (layered forest), K2 (plane band +
+  gaussian) and union-find, then 32 live ticks of each mode and 5 batched
+  calls under torch.profiler (after one traced warm-up call): device
+  operations, device ms, idle share, host syncs, copies by direction,
+  graph replays and the kernels' launches traced by name, which must
+  equal the graphs' replays times their launches per replay (a live tick
+  must make no host sync and one device-to-host copy, a batched call one
+  4-byte read; the wrappers count only the graphs' warm-ups and
+  captures); a pipelined and an unpipelined BeatsApp on the same 60
+  frames (the same host copies and MIDI events); the port's plain path
+  on the CPU on the same frames;
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
   (training split bits) and B1 (single-forest evaluation), its pct_match
@@ -137,7 +150,12 @@ K2 = preproc_cuda.plane_band_gauss_cuda
 B1 = forest_eval_cuda.evaluate_forest_cuda
 B4 = train_features_cuda.train_feature_bits_cuda
 B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
+UF = components.label_components
+# the frame kernels' names in a profiler trace: K1, K2, union-find
+FRAME_KERNEL_NAMES = ("evaluate_layered_kernel", "plane_band_gauss_kernel",
+                      "label_components_kernel")
 APP_FRAMES = 60
+PIPELINE_CHECK_FRAMES = 60       # ticks after the warm-up, in each mode
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
 BATCH = kb.BATCH
 CLASSES = 7          # background, palm, five fingers
@@ -321,78 +339,228 @@ def device_profile(prof, calls, wall_ms, ranges=()):
                 top=[[e.key[:70], us / 1e3 / calls] for us, e in top])
 
 
+def counts():
+    """The launch counts of the frame's kernels (K1, K2, union-find): their
+    wrappers' calls, which a CUDA graph's warm-up and capture make and its
+    replays do not."""
+    return tuple(k.launches for k in (K1, K2, UF))
+
+
+def captured_launches(pipe):
+    """The (K1, K2, union-find) launches ``pipe``'s graphs made through the
+    wrappers: each graph's warm-up and its capture, so twice its launches
+    per replay."""
+    return tuple(sum(2 * g.launches[k.__name__] for g in pipe.graphs.values())
+                 for k in (K1, K2, UF))
+
+
+def pool_mb(frame_graph):
+    """MB of device memory held by the segments of a FrameGraph's private
+    pool, from the caching allocator's snapshot."""
+    pool = tuple(frame_graph.graph.pool())
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == pool) / 2 ** 20
+
+
+def graph_table(pipe):
+    """Per captured (program, shape): replays, launches per replay and the
+    pool's MB."""
+    return {f"{name} {list(shape)}": dict(
+        replays=g.replays, launches_per_replay=g.launches, pool_mb=pool_mb(g))
+        for (name, shape), g in pipe.graphs.items()}
+
+
+def stats_ms(seconds):
+    """Median, spread and mean of per-call host times, in ms."""
+    ms = np.asarray(seconds) * 1e3
+    return dict(median=float(np.median(ms)), p10=float(np.percentile(ms, 10)),
+                p90=float(np.percentile(ms, 90)), min=float(ms.min()),
+                max=float(ms.max()), argmax=int(ms.argmax()),
+                mean=float(ms.mean()), n=int(ms.size))
+
+
+CALL_RANGE = "chip_smoke call"
+
+
+def host_traffic(prof, calls):
+    """Per call of a torch.profiler window whose calls each ran inside a
+    ``CALL_RANGE`` range: the host's synchronising runtime calls
+    (cudaStreamSynchronize, cudaDeviceSynchronize) and event waits
+    (cudaEventSynchronize) made inside the calls, those made outside them
+    (the window's own), its cudaMemcpy* calls, and the device's copies by
+    direction."""
+    events = prof.events()
+    # the host side of each range (its device-side annotation has the name)
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == CALL_RANGE
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(spans) != calls:
+        raise AssertionError(f"{len(spans)} call ranges, {calls} calls")
+
+    def inside(e):
+        return any(a <= e.time_range.start <= b for a, b in spans)
+
+    syncs = [e for e in events
+             if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    n = {}
+    for e in prof.key_averages():
+        n[e.key] = n.get(e.key, 0) + e.count
+    copies = {d: sum(c for k, c in n.items() if k.startswith(f"Memcpy {d}"))
+              for d in ("HtoD", "DtoH", "DtoD")}
+    n_in = sum(inside(e) for e in syncs)
+    return dict(
+        host_syncs_per_call=n_in / calls,
+        host_syncs_outside_calls=len(syncs) - n_in,
+        event_waits_per_call=sum(
+            inside(e) for e in events
+            if e.name == "cudaEventSynchronize") / calls,
+        memcpy_calls_per_call=sum(c for k, c in n.items()
+                                  if k.startswith("cudaMemcpy")) / calls,
+        graph_launches_per_call=n.get("cudaGraphLaunch", 0) / calls,
+        **{f"copies_{d}_per_call": c / calls for d, c in copies.items()})
+
+
+def profiled(run, calls, pipe):
+    """torch.profiler over ``calls`` calls of run(), each in a
+    ``CALL_RANGE`` range, after one warm-up call that the profiler traces
+    and drops (the schedule's warm-up step: without it a window's first
+    kernel record could go missing).  Returns the window's device profile,
+    host traffic, wall ms per call, graph replays, and per frame kernel
+    the launches traced by name, which must equal the sum over ``pipe``'s
+    graphs of the replays in the window times the graph's launches per
+    replay.  The wrappers' counts must not move: a replay goes through no
+    wrapper, and nothing else may launch a frame kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=calls, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = counts()
+        replays = {key: g.replays for key, g in pipe.graphs.items()}
+        t0 = time.perf_counter()
+        for i in range(calls):
+            with torch.profiler.record_function(CALL_RANGE):
+                run()
+            if i == calls - 1:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+            prof.step()
+    res = device_profile(prof, calls, wall_ms,
+                         ranges=(CALL_RANGE, "ProfilerStep#"))
+    res.update(host_traffic(prof, calls))
+    res["graph_replays_per_call"] = sum(
+        g.replays - replays.get(key, 0)
+        for key, g in pipe.graphs.items()) / calls
+    if counts() != before:
+        raise AssertionError(f"a wrapper launched in the window: "
+                             f"{before} -> {counts()}")
+    res["traced"] = {}
+    for name, kernel, needle in zip(("k1", "k2", "union_find"),
+                                    (K1, K2, UF), FRAME_KERNEL_NAMES):
+        n, ms = kernel_device_ms(prof, needle)
+        want = sum((g.replays - replays.get(key, 0)) * g.launches[
+            kernel.__name__] for key, g in pipe.graphs.items())
+        res[name] = dict(launches_per_call=n / calls,
+                         replayed_per_call=want / calls,
+                         device_ms_per_launch=ms)
+        res["traced"][name] = n
+        if n != want or n < calls:
+            raise AssertionError(f"{name}: {n} launches traced, the graphs "
+                                 f"replayed {want} in {calls} calls")
+    return res
+
+
+def timed_ticks(app, frames, n):
+    """n ticks of ``app`` on the host clock: a tick's time runs from its
+    start to the next tick's (the last tick's to a synchronise after it),
+    so a pipelined tick is not made to wait on its own frame.  Returns the
+    ticks' outputs and seconds."""
+    outs, ts = [], [time.perf_counter()]
+    for _ in range(n):
+        outs.append(app.tick(next(frames)))
+        ts.append(time.perf_counter())
+    torch.cuda.synchronize()
+    ts[-1] = time.perf_counter()
+    return outs, np.diff(ts)
+
+
 def phase_main_path(inp, smi):
-    """The instrument (BeatsApp.tick) and the batched call: ms per frame and
-    frames/s on the host clock, then a torch.profiler window of 32 live
-    frames and 5 batched calls for K1's and K2's device time in place."""
+    """The instrument (BeatsApp.tick, pipelined and not) and the batched
+    call, each a replayed CUDA graph: host ms per call (the median and
+    spread of APP_FRAMES ticks of each mode after a warm tick, and of 5
+    batched calls), then a torch.profiler window of each for device
+    operations, device ms, idle share, graph replays, K1/K2/union-find
+    launches, host syncs and copies.  Returns the launches traced in the
+    windows (K1, K2, union-find) and the wrappers' counts over the run."""
     model, frames, plane = inp.model, inp.frames, inp.plane
     source = SyntheticSource(inp.intrin)
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
                    log=lambda *a: None)
     # frames are synthesised up front so the timing holds ticks only
-    it = iter([f for f, _ in zip(
-        source.frames(),
-        range(app.cfg.warmup_frames + APP_FRAMES + PROFILED_FRAMES))])
-    K1.launches = K2.launches = 0
+    n_frames = (app.cfg.warmup_frames + 1 + 2 * (1 + APP_FRAMES)
+                + 2 * (1 + PROFILED_FRAMES))
+    synth = [f for f, _ in zip(source.frames(), range(n_frames))]
+    it = iter(synth)
+    K1.launches = K2.launches = UF.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
     t_cal = time.perf_counter()
-    app.tick(next(it))          # RANSAC calibration + the first frame
+    app.tick(next(it))          # RANSAC calibration, capture, first frame
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t_cal
-    outs = []
-    t0 = time.perf_counter()
-    for _ in range(APP_FRAMES - 1):
+    outs, ms_tick = [], {}
+    for pipelined in (True, False):
+        app.cfg.pipelined = pipelined
+        # a warm tick: pipelined, its fetch of the pending frame is the
+        # first (and allocates the pinned landing buffer)
         outs.append(app.tick(next(it)))
-    outs.append(app.flush())
-    torch.cuda.synchronize()
-    ms_frame = (time.perf_counter() - t0) * 1e3 / (APP_FRAMES - 1)
-    processed = APP_FRAMES
-    launches_app = (K1.launches, K2.launches)
+        o, secs = timed_ticks(app, it, APP_FRAMES)
+        outs += o + [app.flush()]
+        ms_tick["pipelined" if pipelined else "unpipelined"] = stats_ms(secs)
+    outs = [o for o in outs if o is not None]
+    processed = len(outs)
 
     ob = app.pipeline.batch(frames, plane)
     torch.cuda.synchronize()
-    before = (K1.launches, K2.launches)
-    t0 = time.perf_counter()
-    iters = 5
-    for _ in range(iters):
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
         ob = app.pipeline.batch(frames, plane)
-    torch.cuda.synchronize()
-    fps_batched = BATCH * iters / (time.perf_counter() - t0)
-    per_batch = ((K1.launches - before[0]) / iters,
-                 (K2.launches - before[1]) / iters)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    walls = {}
-    with torch.profiler.profile(activities=acts) as prof_live:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_FRAMES):
-            app.tick(next(it))
         torch.cuda.synchronize()
-        walls["live"] = time.perf_counter() - t0
-    with torch.profiler.profile(activities=acts) as prof_batch:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_BATCHES):
-            app.pipeline.batch(frames, plane)
-        torch.cuda.synchronize()
-        walls["batched"] = time.perf_counter() - t0
-    launches = (K1.launches, K2.launches)
-    in_place = {}
-    for path, prof, calls in (("live", prof_live, PROFILED_FRAMES),
-                              ("batched", prof_batch, PROFILED_BATCHES)):
-        for name, needle in (("k1", "evaluate_layered_kernel"),
-                             ("k2", "plane_band_gauss_kernel")):
-            n, ms = kernel_device_ms(prof, needle)
-            in_place[f"{name}_{path}"] = dict(launches_per_call=n / calls,
-                                              device_ms_per_launch=ms)
-        in_place[path] = device_profile(prof, calls,
-                                        walls[path] * 1e3 / calls)
+        secs.append(time.perf_counter() - t0)
+    ms_batch = stats_ms(secs)
 
-    if min(launches_app) < processed:
-        raise AssertionError(f"kernel launches {launches_app} < {processed} frames")
-    if min(per_batch) < 1:
-        raise AssertionError("the batched call launched no kernel")
+    windows = {}
+    for pipelined in (True, False):
+        app.cfg.pipelined = pipelined
+        windows["live_pipelined" if pipelined else "live_unpipelined"] = (
+            profiled(lambda: app.tick(next(it)), PROFILED_FRAMES,
+                     app.pipeline))
+        app.flush()
+    windows["batched"] = profiled(lambda: app.pipeline.batch(frames, plane),
+                                  PROFILED_BATCHES, app.pipeline)
+    wrapper = counts()
+    traced = tuple(sum(w["traced"][k] for w in windows.values())
+                   for k in ("k1", "k2", "union_find"))
+    live = app.pipeline.graphs[("frame_step", tuple(frames.shape[1:]))]
+    ticks = len(synth) - sum(1 for _ in it) - app.cfg.warmup_frames
+
+    for name in ("live_pipelined", "live_unpipelined"):
+        w = windows[name]
+        if (w["host_syncs_per_call"] != 0 or w["copies_DtoH_per_call"] != 1
+                or w["graph_replays_per_call"] != 1):
+            raise AssertionError(f"{name}: {w}")
+    w = windows["batched"]
+    if w["copies_DtoH_per_call"] != 1 or w["host_syncs_per_call"] > 1:
+        raise AssertionError(f"batched: {w}")
+    # every launch of the run's wrappers was a graph's warm-up or capture
+    if (min(wrapper) < 1 or wrapper != captured_launches(app.pipeline)
+            or live.replays != ticks):
+        raise AssertionError(f"wrapper launches {wrapper}, captured "
+                             f"{captured_launches(app.pipeline)}; "
+                             f"{live.replays} live replays, {ticks} ticks")
     # Frames 8 and 13 of the bench scenes lose a hand (one under the 6 %
     # group-size threshold, one merged with its neighbour); the JAX package
     # finds the same group sizes on these scenes.
@@ -408,16 +576,120 @@ def phase_main_path(inp, smi):
     app_valid = sum(int(o["tip_valid"].sum()) for o in outs)
     if n_valid == 0 or app_valid == 0:
         raise AssertionError("no valid fingertip")
-    say("main_path", card=smi, frames=processed,
-        calibration_and_first_frame_s=round(t_cal, 4),
-        ms_per_frame_single=ms_frame, batch=BATCH, fps_batched=fps_batched,
-        k1_launches=launches[0], k2_launches=launches[1],
-        launches_per_frame=[launches_app[0] / processed,
-                            launches_app[1] / processed],
-        launches_per_batched_call=list(per_batch), profiled=in_place,
-        hands_per_frame=hands.tolist(), valid_tips_batch=n_valid, valid_tips_app=app_valid,
-        midi_events=len(app.midi.sink.events))
-    return launches
+    say("main_path", card=smi, frames=processed, ticks=ticks,
+        calibration_capture_and_first_frame_s=round(t_cal, 4),
+        ms_per_tick=ms_tick, batch=BATCH, ms_per_batched_call=ms_batch,
+        fps_batched=BATCH * 1e3 / ms_batch["median"],
+        k1_launches_traced=traced[0], k2_launches_traced=traced[1],
+        union_find_launches_traced=traced[2],
+        wrapper_launches=dict(zip(("k1", "k2", "union_find"), wrapper)),
+        profiled=windows, graphs=graph_table(app.pipeline),
+        hands_per_frame=hands.tolist(), valid_tips_batch=n_valid,
+        valid_tips_app=app_valid, midi_events=len(app.midi.sink.events))
+    return traced
+
+
+def phase_pipelined_vs_not(inp, smi):
+    """The same synthetic frames through a pipelined and an unpipelined
+    BeatsApp on the card: the tap update's host copies (heights,
+    tip_valid, guard_muted) equal frame by frame, and the same MIDI
+    events."""
+    source = SyntheticSource(inp.intrin)
+    n = AppConfig().warmup_frames + PIPELINE_CHECK_FRAMES
+    frames = [f for f, _ in zip(source.frames(), range(n))]
+    seen, events = {}, {}
+    for pipelined in (True, False):
+        app = BeatsApp(inp.model, source, midi=Midi(),
+                       cfg=AppConfig(pipelined=pipelined), log=lambda *a: None)
+        host = seen[pipelined] = []
+        for out in [app.tick(f) for f in frames] + [app.flush()]:
+            if out is not None:
+                host.append({k: v.copy() for k, v in app.host_out.items()})
+        events[pipelined] = [msg for _, msg in app.midi.sink.events]
+    a, b = seen[True], seen[False]
+    differing = [i for i, (x, y) in enumerate(zip(a, b)) if not all(
+        np.array_equal(x[k], y[k], equal_nan=x[k].dtype.kind == "f")
+        for k in x)]
+    say("pipelined_vs_not", card=smi, frames=n, host_updates=[len(a), len(b)],
+        valid_tips=int(sum(x["tip_valid"].sum() for x in a)),
+        midi_events=[len(events[True]), len(events[False])],
+        differing_frames=differing)
+    if (differing or len(a) != len(b) or len(a) != n - AppConfig().warmup_frames
+            or not events[True] or events[True] != events[False]):
+        raise AssertionError(f"pipelined vs not: frames {differing} differ, "
+                             f"{len(a)} and {len(b)} updates, "
+                             f"{len(events[True])} and {len(events[False])} "
+                             "MIDI events")
+
+
+def same_outputs(got, want):
+    """The keys whose tensors differ (NaN equals NaN)."""
+    return [k for k in want if differ(got[k], want[k])]
+
+
+def phase_graph_vs_eager(inp, smi):
+    """FramePipeline's replayed graphs against the eager programs bit for
+    bit: the 16 scenes and an oversized-hand frame one by one, and batches
+    with nbad = 0, 1 and 3 (3 > fallback_budget: the all-full-frame
+    program after the one read)."""
+    pipe = pl.FramePipeline(inp.model, inp.intrin)
+    big = pipe.as_depth(kb.oversized(inp.scenes[1], inp.intrin))
+    frames = list(inp.frames) + [big]
+    diffs = {}
+    for i, depth in enumerate(frames):
+        d = same_outputs(pipe(depth, inp.plane),
+                         pl.frame_step(pipe, depth, inp.plane))
+        if d:
+            diffs[f"frame {i}"] = d
+    batched = {}
+    for bad in ((), (1,), (1, 4, 9)):
+        batch = inp.frames.clone()
+        for i in bad:
+            batch[i] = pipe.as_depth(kb.oversized(inp.scenes[i], inp.intrin))
+        got = pipe.batch(batch, inp.plane)
+        d = same_outputs(got, pl.frame_step_batched(pipe, batch, inp.plane))
+        batched[len(bad)] = dict(differing=d, tips_valid=int(
+            got["tip_valid"].sum()))
+        if d:
+            diffs[f"batch nbad={len(bad)}"] = d
+    too_big = bool(pl._crop_origins(
+        pl._front(pipe, big[None], inp.plane)[1], pipe.cfg, *big.shape)[2][0])
+    say("graph_vs_eager", card=smi, frames=len(frames),
+        oversized_frame_too_big=too_big, batched=batched,
+        graphs=graph_table(pipe), replays=pipe.replays, differing=diffs)
+    if diffs or not too_big:
+        raise AssertionError(f"graph replay vs eager: {diffs}, too_big "
+                             f"{too_big}")
+
+
+def phase_components(inp, smi):
+    """The union-find kernel against its plain loop on the 16 scenes'
+    mipmaps (one launch for the batch, one per live frame) and the
+    serpentine; device time from a CUDA graph, plain time from the host."""
+    masks = kb.mipmap_masks(inp)
+    cases = {"live": masks[:1].contiguous(), "batch": masks,
+             "serpentine": torch.as_tensor(kb.serpentine(),
+                                           device=masks.device)[None]}
+    res = {}
+    for name, m in cases.items():
+        got = UF(m)
+        want = components.label_components_plain(m)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        n = m.numel()
+        # a sweep that checks the fixpoint: 4 neighbour compares and a
+        # select per pixel; the bytes: the mask in, int64 labels out
+        bound_ms, bound_by = kb.bound(n * 9, 5 * n)
+        res[name] = dict(
+            mismatches=mism, max_abs_err=int((got - want).abs().max()),
+            ms=graph_ms(lambda: UF(m)),
+            plain_ms=host_ms(lambda: components.label_components_plain(m)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        say("components_vs_plain", card=smi, case=name, shape=list(m.shape),
+            **res[name])
+        if mism:
+            raise AssertionError(f"union-find on {name}: {mism} mismatches")
+    return res
 
 
 def phase_card_vs_cpu(model, scenes, plane, intrin):
@@ -429,11 +701,7 @@ def phase_card_vs_cpu(model, scenes, plane, intrin):
     host = pl.FramePipeline(cpu_model, intrin)
     # frame 1 gets a hand too big for the crop window: the batched call
     # rescues it full-frame
-    big = scenes[1].copy()
-    yy, xx = np.mgrid[0:intrin.height, 0:intrin.width].astype(np.float32)
-    blob = (((xx - 0.45 * intrin.width) / 260.0) ** 2
-            + ((yy - 0.5 * intrin.height) / 200.0) ** 2) < 1.0
-    big[blob] = (big[blob].astype(np.int64) - 400).clip(1).astype(np.uint16)
+    big = kb.oversized(scenes[1], intrin)
     pair = np.stack([scenes[0], big])
     outs = [(card(scenes[i], plane), host(scenes[i], plane.cpu()))
             for i in range(2)]
@@ -1123,39 +1391,35 @@ def differ(a, b):
     return int((a.to(torch.int32) != b.to(torch.int32)).sum())
 
 
-def bag_drive(app, frames, profiled=0):
+def bag_drive(app, frames, n_profiled=0):
     """Tick ``app`` over ``frames``, then flush; the outputs, the host wall
     per tick over the steady unprofiled ticks (after the calibration frame)
-    and, with ``profiled``, a torch.profiler window over the last ticks:
-    the profiler, its wall ms per tick and the (K1, K2) launches in it."""
-    outs, walls, prof, counted = [], [], None, None
+    and, with ``n_profiled``, :func:`profiled` over the last n_profiled
+    ticks (its warm-up tick the one before them)."""
+    outs, walls = [], []
     first = app.cfg.warmup_frames + 1
-    for i, frame in enumerate(frames):
-        if profiled and i == len(frames) - profiled:
-            torch.cuda.synchronize()
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.start()
-            t_prof = time.perf_counter()
-            counted = (K1.launches, K2.launches)
-        t0 = time.perf_counter()
+    n_plain = len(frames) - (n_profiled + 1 if n_profiled else 0)
+
+    def tick(frame):
         out = app.tick(frame)
         if out is not None:
             outs.append(out)
-        if first <= i < len(frames) - profiled:
+
+    for i, frame in enumerate(frames[:n_plain]):
+        t0 = time.perf_counter()
+        tick(frame)
+        if i >= first:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
     window = None
-    if prof is not None:
-        window = (time.perf_counter() - t_prof) * 1e3 / profiled
-        prof.stop()
-        counted = (K1.launches - counted[0], K2.launches - counted[1])
-    out = app.flush()
-    if out is not None:
-        outs.append(out)
-    return outs, walls, prof, window, counted
+    if n_profiled:
+        rest = iter(frames[n_plain:])
+        window = profiled(lambda: tick(next(rest)), n_profiled, app.pipeline)
+    torch.cuda.synchronize()
+    tick_out = app.flush()
+    if tick_out is not None:
+        outs.append(tick_out)
+    return outs, walls, window
 
 
 def phase_bag_path(inp, smi):
@@ -1187,11 +1451,11 @@ def phase_bag_path(inp, smi):
             return BeatsApp(inp.model, source, midi=Midi(), cfg=AppConfig(),
                             log=lambda *a: None)
 
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = UF.launches = 0
         app = app_on(src)
-        outs, walls, prof, window_ms, in_window = bag_drive(app, replay,
-                                                            BAG_PROFILED)
-        launches = (K1.launches, K2.launches)
+        outs, walls, profiled_ticks = bag_drive(app, replay, BAG_PROFILED)
+        launches = counts()
+        graph = app.pipeline.graphs[("frame_step", depth[0].shape)]
         ticks = BAG_FRAMES - app.cfg.warmup_frames
         mem_outs, *_ = bag_drive(
             app_on(SyntheticSource(intrin)),
@@ -1199,13 +1463,6 @@ def phase_bag_path(inp, smi):
         mism = {key: sum(differ(a[key], b[key]) for a, b in zip(outs, mem_outs))
                 for key in ("labels", "g_info", "heights", "tip_valid",
                             "means")}
-        profiled = device_profile(prof, BAG_PROFILED, window_ms)
-        for i, (name, needle) in enumerate((
-                ("k1", "evaluate_layered_kernel"),
-                ("k2", "plane_band_gauss_kernel"))):
-            n, ms = kernel_device_ms(prof, needle)
-            profiled[name] = dict(launches=in_window[i], traced=n,
-                                  device_ms_per_launch=ms)
 
         K1.launches = 0
         log = io.StringIO()
@@ -1232,6 +1489,7 @@ def phase_bag_path(inp, smi):
                 "-cfg", os.path.join(FLAGSHIP, "model_cfg.json"),
                 "--rs_bag", path, "--viewer", "--viewer_port", "0"])
         bz_launches = (K1.launches, K2.launches)
+        bz_graph = bz_app.pipeline.graphs[("frame_step", depth[0].shape)]
     finally:
         os.remove(path)
     state = probe.get("state", {})
@@ -1241,14 +1499,15 @@ def phase_bag_path(inp, smi):
     say("bag_path", card=smi, frames=BAG_FRAMES, shape=list(depth[0].shape),
         bag_bytes=sum(d.nbytes for d in depth) + sum(c.nbytes for c in color),
         write_s=write_s, open_s=open_s, source=type(src).__name__,
-        ticks=ticks, k1_launches=launches[0], k2_launches=launches[1],
-        ms_per_tick=float(np.mean(walls) * 1e3),
+        ticks=ticks, wrapper_launches=list(launches),
+        launches_per_replay=graph.launches, graph_replays=graph.replays,
+        ms_per_tick=stats_ms(walls),
         ms_per_tick_each=[round(w * 1e3, 3) for w in walls],
-        profiled_ticks=profiled, mismatches_vs_memory=mism,
+        profiled_ticks=profiled_ticks, mismatches_vs_memory=mism,
         layered_app=dict(frames=layered_frames, k1_launches=layered_k1,
                          seconds=layered_s, lines=layered_lines),
-        bz3d_viewer=dict(k1_launches=bz_launches[0],
-                         k2_launches=bz_launches[1],
+        bz3d_viewer=dict(wrapper_launches=list(bz_launches),
+                         graph_replays=bz_graph.replays,
                          state_frame=state.get("frame"),
                          heights_shape=list(heights.shape),
                          labels_png_shape=None if rgba is None
@@ -1256,20 +1515,25 @@ def phase_bag_path(inp, smi):
                          z_thresh_offset=[probe.get("z_before"),
                                           probe.get("z_after")],
                          midi_events=len(bz_app.midi.sink.events)))
-    if min(launches) != ticks or len(outs) != ticks:
-        raise AssertionError(f"bag replay: (K1, K2) launches {launches}, "
-                             f"{len(outs)} outputs, want {ticks} ticks")
-    if in_window != (BAG_PROFILED, BAG_PROFILED) or min(
-            profiled["k1"]["traced"], profiled["k2"]["traced"]) < 1:
-        raise AssertionError(f"bag replay profile: launches {in_window}, "
-                             f"{profiled}")
+    # one graph replay per tick, and the wrappers called only by the
+    # graph's warm-up and capture (profiled held the window's traced
+    # launches to its replays)
+    if (graph.replays != ticks or len(outs) != ticks
+            or launches != captured_launches(app.pipeline)):
+        raise AssertionError(f"bag replay: wrapper launches {launches} "
+                             f"(captured {captured_launches(app.pipeline)}), "
+                             f"{graph.replays} replays, {len(outs)} outputs, "
+                             f"{ticks} ticks")
     if any(mism.values()) or len(mem_outs) != len(outs):
         raise AssertionError(f"bag replay vs memory: {mism}")
     if layered_k1 != layered_evals or len(layered_lines) != 1:
         raise AssertionError(f"run_live_layered_torch: K1 launched "
                              f"{layered_k1} times on {layered_evals} frames")
-    if min(bz_launches) != ticks:
-        raise AssertionError(f"bz3d_torch on the bag: (K1, K2) {bz_launches}")
+    if (bz_graph.replays != ticks
+            or bz_launches != captured_launches(bz_app.pipeline)[:2]):
+        raise AssertionError(f"bz3d_torch on the bag: (K1, K2) {bz_launches}, "
+                             f"captured {captured_launches(bz_app.pipeline)}, "
+                             f"{bz_graph.replays} replays, {ticks} ticks")
     if (state.get("frame") != VIEWER_PROBE_FRAME or heights.shape != (2, 5)
             or not np.isfinite(heights).all() or rgba is None
             or not np.array_equal(rgba, probe["rgba"])):
@@ -1529,6 +1793,7 @@ def phase_mesh_path(inp, smi, forest_d16):
 
     # batch_sharded
     got = res["batch"][0][0]
+    replays = [int(r.pop("graph_replays")) for r, *_ in res["batch"]]
     want = {k: v.cpu().numpy() for k, v in inp.pipe.batch(inp.frames,
                                                           inp.plane).items()}
     exact = {k: int((got[k] != want[k]).sum())
@@ -1537,13 +1802,20 @@ def phase_mesh_path(inp, smi, forest_d16):
     h_ok = np.allclose(got["heights"], want["heights"], rtol=1e-5, atol=1e-3,
                        equal_nan=True)
     k_launches = [(l["K1"], l["K2"]) for _, l, _, _ in res["batch"]]
+    # each rank's one batched call: one replay of its crop program, whose
+    # warm-up and capture are the wrappers' only calls (the launches per
+    # replay do not depend on B)
+    crop = inp.pipe.graphs[("_batched_crop_program", tuple(inp.frames.shape))]
+    k_want = (2 * crop.launches[K1.__name__], 2 * crop.launches[K2.__name__])
     say("mesh_batch_sharded", card=smi, mesh=[4, 1], backend="gloo",
         frames=int(inp.scenes.shape[0]), mismatches=exact,
         heights_within_tol=bool(h_ok), tips_valid=int(v.sum()),
-        k1_k2_launches_per_rank=k_launches,
+        k1_k2_launches_per_rank=k_launches, k1_k2_launches_want=k_want,
+        graph_replays_per_rank=replays,
         wall_s_per_rank=[s_ for *_, s_ in res["batch"]],
         bytes_gathered_per_rank=[b for _, _, b, _ in res["batch"]])
-    if any(exact.values()) or not h_ok or any(l != (1, 1) for l in k_launches):
+    if (any(exact.values()) or not h_ok or replays != [1] * len(replays)
+            or any(l != k_want for l in k_launches)):
         failures.append("batch_sharded")
 
     # the mesh trainer
@@ -1613,7 +1885,10 @@ def main():
     inp = run("inputs", kb.bench_inputs, dev)
     k2 = run("k2_vs_plain", phase_preproc, inp)
     k1 = run("k1_vs_plain", phase_layered, inp)
+    uf = run("components_vs_plain", phase_components, inp, smi)
+    run("graph_vs_eager", phase_graph_vs_eager, inp, smi)
     launches = run("main_path", phase_main_path, inp, smi)
+    run("pipelined_vs_not", phase_pipelined_vs_not, inp, smi)
     run("card_vs_cpu", phase_card_vs_cpu, inp.model, inp.scenes, inp.plane,
         inp.intrin)
     b4 = run("b4_vs_plain", phase_b4, inp.intrin, dev)
@@ -1639,12 +1914,19 @@ def main():
                         train_forest_d16)
     run("mesh_nccl", phase_mesh_nccl, inp, dev)
     run("mesh_dryrun", dryrun_multichip, 4, "cuda")
+    # K1, K2 and union-find run inside CUDA graphs on the main path: their
+    # launches are the kernel records traced in main_path's profiled
+    # windows (each held there to the graphs' replays)
     kernels = [
         entry("evaluate_layered_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],
               k1["live"]),
         entry("plane_band_gauss_cuda", "preproc.cu",
               "beats3d_tpu/ops/preproc_pallas.py:126", launches[1], k2[1]),
+        entry("label_components", "components.cu",
+              "beats3d_tpu/ops/components.py:101 (the lax.while_loop of "
+              "label_components; not a pallas_call)", launches[2],
+              uf["live"]),
         entry("evaluate_forest_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
               dict(b1["golden_r1"], max_abs_err=max(

@@ -875,3 +875,125 @@ def test_native_grouping_matches_card_components(rng_np, cuda_dev):
         np.testing.assert_array_equal(ni[:, 0], di[:, 0])
         found = ni[:, 0] > 0
         np.testing.assert_allclose(ni[found], di[found], rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def bench():
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel test: needs an NVIDIA card")
+    return kernel_bench.bench_inputs(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_components_kernel_matches_plain(cuda_dev, bench):
+    """The union-find kernel against its plain loop: the 16 bench scenes'
+    mipmaps (one launch for the batch, one per frame), the serpentine, and
+    noise in an image of 58,000 pixels (dynamic shared memory above
+    48 KB); an image past the limit raises."""
+    from beats3d_tpu_torch.ops import components
+
+    masks = kernel_bench.mipmap_masks(bench)
+    rng = np.random.default_rng(3)
+    cases = [masks, masks[5],
+             torch.as_tensor(kernel_bench.serpentine(), device=cuda_dev),
+             torch.as_tensor(rng.random((2, 200, 290)) < 0.55,
+                             device=cuda_dev)]
+    for m in cases:
+        before = components.label_components.launches
+        got = components.label_components(m)
+        want = components.label_components_plain(m)
+        torch.cuda.synchronize()
+        assert components.label_components.launches == before + 1
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match=str(components.MAX_PIXELS)):
+        components.label_components(
+            torch.ones((1, 241, 242), dtype=torch.bool, device=cuda_dev))
+
+
+def _assert_same(got, want, what):
+    assert got.keys() == want.keys(), what
+    for k in want:
+        a, b = got[k], want[k]
+        if a.is_floating_point():
+            same = torch.equal(a.isnan(), b.isnan()) and torch.equal(
+                a.nan_to_num(), b.nan_to_num())
+        else:
+            same = torch.equal(a, b)
+        assert same, f"{what}: {k} differs"
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager(cuda_dev, bench, monkeypatch):
+    """FramePipeline's replayed graphs against the eager programs bit for
+    bit: the 16 scenes and an oversized-hand frame one by one, and batches
+    with nbad = 0, 1 and 3 (the all-full-frame program); the plain
+    union-find loop never runs on the card."""
+    from beats3d_tpu_torch.ops import components
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    def no_plain(mask):
+        raise AssertionError("the plain union-find ran on the card")
+
+    monkeypatch.setattr(components, "label_components_plain", no_plain)
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    big = pipe.as_depth(kernel_bench.oversized(bench.scenes[1], bench.intrin))
+    for i, depth in enumerate(list(bench.frames) + [big]):
+        _assert_same(pipe(depth, bench.plane),
+                     pl.frame_step(pipe, depth, bench.plane), f"frame {i}")
+    assert pipe.replays == 17
+    for bad in ((), (1,), (1, 4, 9)):
+        frames = bench.frames.clone()
+        for i in bad:
+            frames[i] = pipe.as_depth(kernel_bench.oversized(
+                bench.scenes[i], bench.intrin))
+        got = pipe.batch(frames, bench.plane)
+        _assert_same(got, pl.frame_step_batched(pipe, frames, bench.plane),
+                     f"batch with {len(bad)} oversized")
+        assert got["g_info"].shape == (16, 2, 3)
+
+
+@pytest.mark.cuda
+def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
+    """Capturing and replaying the live frame and the batched crop program
+    with every synchronising call made an error (the batched call's one
+    read, nbad, comes after the replay)."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        live = pipe(bench.frames[0], bench.plane)
+        pipe.group_min_size = 0.05
+        live2 = pipe(bench.frames[0], bench.plane)
+        crop = pipe._replay(pl._batched_crop_program, bench.frames,
+                            bench.plane)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert live["labels"].shape == live2["labels"].shape == (2, 240, 424)
+    assert crop["labels"].shape == (16, 2, 240, 424)
+    assert pipe.replays == 3
+
+
+@pytest.mark.cuda
+def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
+    """A FrameGraph's warm-up and capture go through the kernel wrappers
+    (K1 twice, K2 and union-find once each per frame program); its replays
+    go through none, so they move no launch count."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    before = [k.launches for k in pl.FRAME_KERNELS]
+    pipe(bench.frames[0], bench.plane)
+    captured = [k.launches for k in pl.FRAME_KERNELS]
+    graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
+    assert list(graph.launches.values()) == [2, 1, 1]
+    assert [a - b for a, b in zip(captured, before)] == [
+        2 * graph.launches[k.__name__] for k in pl.FRAME_KERNELS]
+    for depth in bench.frames[1:4]:
+        pipe(depth, bench.plane)
+    torch.cuda.synchronize()
+    assert [k.launches for k in pl.FRAME_KERNELS] == captured
+    assert graph.replays == 4
+

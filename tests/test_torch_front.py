@@ -181,3 +181,72 @@ def test_point_ops_match_jax(rng):
         points.make_rgba_from_labels(torch.as_tensor(labels), colors).numpy(),
         np.asarray(jpoints.make_rgba_from_labels(jnp.asarray(labels),
                                                  jnp.asarray(colors))))
+
+
+@pytest.mark.parametrize(
+    "kind", ["blobs", "noise", "small_blob", "two_hands", "serpentine"])
+def test_label_components_match_jax(rng, kind):
+    """The union-find kernel's plain version (the CPU path) against JAX's
+    while_loop, every pixel, background (H*W) included."""
+    d, _ = _groups_scene(rng, kind)
+    want = np.asarray(jcomp.label_components(jnp.asarray(d > 0)))
+    got = components.label_components(torch.as_tensor(d > 0))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        components.label_components_plain(torch.as_tensor(d > 0)).numpy(),
+        want)
+
+
+def test_crop_and_place_match_jax(rng):
+    """crop / place at device-side origins against crop_mm / scatter_mm, at
+    random origins and at the edges (flush with each side, and windows
+    that hang over them), exactly."""
+    img = rng.integers(0, 65536, (40, 56)).astype(np.uint16)
+    ch, cw, hh, ww = 16, 24, 40, 56
+    origins = [(0, 0), (hh - ch, ww - cw), (0, ww - cw), (hh - ch, 0),
+               (-5, -7), (hh - 3, ww - 2)]
+    origins += [tuple(o) for o in rng.integers(0, [hh - ch, ww - cw],
+                                               (6, 2))]
+    oy = torch.tensor([o[0] for o in origins])
+    ox = torch.tensor([o[1] for o in origins])
+    stack = torch.as_tensor(np.repeat(img[None].astype(np.int32),
+                                      len(origins), 0))
+    crops = points.crop(stack, oy, ox, ch, cw)
+    tile = rng.integers(0, 65536, (len(origins), ch, cw)).astype(np.uint16)
+    placed = points.place(65535, torch.as_tensor(tile.astype(np.int32)), oy,
+                          ox, hh, ww)
+    for i, (y, x) in enumerate(origins):
+        np.testing.assert_array_equal(
+            crops[i].numpy(), np.asarray(jpoints.crop_mm(
+                jnp.asarray(img), y, x, ch, cw)), err_msg=f"crop at {y, x}")
+        np.testing.assert_array_equal(
+            placed[i].numpy(), np.asarray(jpoints.scatter_mm(
+                jnp.asarray(65535, jnp.uint16), jnp.asarray(tile[i]), y, x,
+                hh, ww)), err_msg=f"place at {y, x}")
+
+
+@pytest.mark.parametrize("num_coords", [0, 2, 3, 6])
+def test_write_pixel_groups_matches_jax(num_coords):
+    """tests/test_points.py's scatter rows, then rows that meet, a negative
+    coordinate (counted from the end) and rows outside the image
+    (dropped)."""
+    coords = np.array([[1, 2, 1], [3, 4, 2], [0, 0, 9], [1, 2, 3],
+                       [-1, -2, 4], [7, 0, 5]], np.int32)
+    want = np.asarray(jpoints.write_pixel_groups_to_stencil_image(
+        jnp.asarray(coords), num_coords, (5, 6)))
+    got = points.write_pixel_groups_to_stencil_image(coords, num_coords, (5, 6))
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_make_depth_rgba_matches_jax(rng):
+    """tests/test_points.py's sentinel cases, then every grey level of the
+    range and its ends (256 saturates to 255)."""
+    d = np.array([[0, 100], [65535, 300]], np.uint16)
+    extra = np.concatenate([np.arange(40, 261), rng.integers(0, 65536, 59)])
+    for depth in (d, extra.astype(np.uint16).reshape(28, 10)):
+        want = np.asarray(jpoints.make_depth_rgba(jnp.asarray(depth), 50, 250))
+        got = points.make_depth_rgba(torch.as_tensor(depth.astype(np.int32)),
+                                     50, 250)
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -30,6 +30,7 @@ from beats3d_tpu.runtime.midi import Midi as JaxMidi
 from beats3d_tpu.utils import CameraIntrinsics
 from beats3d_tpu_torch.data import synth
 from beats3d_tpu_torch.models import LayeredDecisionForest
+from beats3d_tpu_torch.ops import components
 from beats3d_tpu_torch.runtime import app as tapp
 from beats3d_tpu_torch.runtime import pipeline as tpipe
 from beats3d_tpu_torch.runtime.camera import SyntheticSource
@@ -205,3 +206,131 @@ def test_app_midi_matches_jax(tmp_path, rng):
     assert len(want) > 0, "the scene produced no MIDI events"
     assert got == want
     assert ta.labels_rgba().shape == (H // 2, W // 2, 4)
+
+
+def _grown(rng, hs, ws, boxes):
+    g = np.zeros((hs, ws), np.int32)
+    for gid, (y0, y1, x0, x1) in boxes:
+        g[y0:y1, x0:x1] = gid
+    return g
+
+
+@pytest.mark.parametrize("h,w,ch,cw", [(120, 212, 48, 64), (480, 848, 448, 512)])
+def test_crop_origins_match_jax(rng, h, w, ch, cw):
+    """The device-side origins and too_big against JAX's _crop_origins: no
+    hand, one hand, hands at the image edges, random boxes and boxes too
+    big for the window."""
+    kw = dict(height=h, width=w, labels_reduce=2, crop_h=ch, crop_w=cw)
+    cfg_t, cfg_j = tpipe.PipelineConfig(**kw), jpipe.PipelineConfig(**kw)
+    hs, ws = -(-h // 8), -(-w // 8)
+    cases = [[], [(1, (2, 5, 3, 6))], [(2, (0, 3, ws - 4, ws))],
+             [(1, (hs - 2, hs, 0, 2)), (2, (0, hs, ws - 1, ws))],
+             [(1, (0, hs, 0, ws // 2))]]
+    for _ in range(8):
+        boxes = []
+        for gid in (1, 2):
+            y0, x0 = rng.integers(0, hs - 1), rng.integers(0, ws - 1)
+            boxes.append((gid, (y0, rng.integers(y0 + 1, hs + 1),
+                                x0, rng.integers(x0 + 1, ws + 1))))
+        cases.append(boxes)
+    grown = np.stack([_grown(rng, hs, ws, b) for b in cases])
+    oys, oxs, too_big = tpipe._crop_origins(torch.as_tensor(grown), cfg_t, h, w)
+    assert oys.dtype == oxs.dtype == torch.int32 and too_big.dtype == torch.bool
+    for i, g in enumerate(grown):
+        want = jpipe._crop_origins(jnp.asarray(g), cfg_j, h, w)
+        np.testing.assert_array_equal(oys[i].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(oxs[i].numpy(), np.asarray(want[1]))
+        assert bool(too_big[i]) == bool(want[2]), i
+    assert too_big.any() and not too_big.all()
+
+
+@pytest.mark.parametrize("bad", [(), (1,), (0, 2), (0, 1, 3)])
+def test_batch_nbad_matches_jax(pipes, bad):
+    """B=4 with fallback_budget 2 and nbad = 0, 1, fb (the budgeted rescue
+    on the device) and fb + 1 (the all-full-frame program)."""
+    intrin, jp, tp = pipes
+    frames = np.stack([_scene(intrin, t, big=t in bad) for t in range(4)])
+    plane = _table_plane()
+    got = tp.batch(frames, plane)
+    want = jp.batch(jnp.asarray(frames), jnp.asarray(plane))
+    _assert_outputs_match(got, want)
+
+
+class _HostReads:
+    """Tensor methods that read a value back to the host, patched to raise
+    (``allowed`` calls of ``item`` pass)."""
+
+    NAMES = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__",
+             "__index__")
+
+    def __init__(self, monkeypatch, allowed=0):
+        self.allowed, self.reads, self.lifted = allowed, [], False
+        for name in self.NAMES:
+            orig = getattr(torch.Tensor, name)
+            monkeypatch.setattr(torch.Tensor, name, self._guard(name, orig))
+        # the plain union-find's fixpoint test reads the host once per
+        # round: the CPU's stand-in for the kernel's block-wide flag
+        plain = components.label_components_plain
+
+        def lifted(mask):
+            self.lifted = True
+            try:
+                return plain(mask)
+            finally:
+                self.lifted = False
+
+        monkeypatch.setattr(components, "label_components_plain", lifted)
+
+    def _guard(self, name, orig):
+        def read(t, *a, **kw):
+            if not self.lifted:
+                self.reads.append(name)
+                if name != "item" or self.reads.count("item") > self.allowed:
+                    raise AssertionError(f"host read: Tensor.{name}")
+            return orig(t, *a, **kw)
+        return read
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_frame_programs_read_nothing_back(pipes, monkeypatch, big):
+    """frame_step reads no tensor back to the host; frame_step_batched
+    reads one 4-byte value (nbad), after its crop program is queued."""
+    intrin, _, tp = pipes
+    depth = tp.as_depth(_scene(intrin, 1, big=big))
+    batch = tp.as_depth(np.stack([_scene(intrin, t, big=big and t < 3)
+                                  for t in range(4)]))
+    plane = tp._plane(_table_plane())
+    want = tpipe.frame_step(tp, depth, plane)
+    want_b = tpipe.frame_step_batched(tp, batch, plane)
+    reads = _HostReads(monkeypatch, allowed=1)
+    got = tpipe.frame_step(tp, depth, plane)
+    assert reads.reads == []
+    got_b = tpipe.frame_step_batched(tp, batch, plane)
+    assert reads.reads == ["item"]
+    monkeypatch.undo()
+    for a, b in ((got, want), (got_b, want_b)):
+        for k in a:
+            assert torch.equal(a[k].nan_to_num(), b[k].nan_to_num()), k
+
+
+def test_app_pipelined_matches_unpipelined(tmp_path, rng):
+    """BeatsApp sends the same MIDI events pipelined (frame N's program
+    queued before frame N-1's tap update) and not."""
+    cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
+    intrin = CameraIntrinsics.d415(W, H)
+    events = []
+    for pipelined in (True, False):
+        app = tapp.BeatsApp(
+            LayeredDecisionForest.load(cfg_path, labels_reduce=2,
+                                       device="cpu"),
+            SyntheticSource(intrin), midi=Midi(),
+            cfg=tapp.AppConfig(plane_num_iterations=64, group_min_size=0.02,
+                               warmup_frames=2, min_velocity=5.0,
+                               default_fingertip_thresholds=(120.0,) * 5,
+                               pipelined=pipelined),
+            log=lambda *a: None)
+        app.calibrated_plane.plane = torch.as_tensor(_table_plane())
+        assert app.run(max_frames=20) == 20
+        events.append([msg for _, msg in app.midi.sink.events])
+    assert len(events[0]) > 0, "the scene produced no MIDI events"
+    assert events[0] == events[1]
