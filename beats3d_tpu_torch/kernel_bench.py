@@ -1,24 +1,34 @@
 """The port's redesigned kernels on the card: K1 (layered forest), B4
-(training split bits) and B1 (single forest), their inputs at the main
-paths' shapes, the least time the card could take for them, and the
-parent-against-change timing.
+(training split bits), B1 (single forest) and the grouping kernel, their
+inputs at the main paths' shapes, the least time the card could take for
+them, and the parent-against-change timing.
 
     python -m beats3d_tpu_torch.kernel_bench --parent DIR
 
-DIR holds an earlier version of ``forest_eval.cu``, ``forest_walk.cuh`` and
-``train_features.cu`` (for example ``git show REV:beats3d_tpu_torch/csrc/
-FILE``) whose K1 entry takes a ``lanes`` argument; its B1 entry may take
-one or not, as its source says.  The script builds them with
-the port's nvcc flags into ``build/``, checks that the earlier and the
-current kernels give the plain versions' outputs, and times them in turns
-(earlier, current, current, earlier) from CUDA graphs at every row.  Then
-B1 for each lane grouping (``b1_variant``), the dense forest's repack into
-K1's tables (``b1_repack``), and K1 for each lane grouping
-(``k1_sweep``).  The B4 and B1 designs that measured slower (pixel lanes with the proposals split over warps, 4 or 8 pixels per
-warp step, a reciprocal fast path for the divisions, lanes along the
-walk, reading the next level ahead) are not kept; their times are in
-PERF.md.  It prints one JSON line per measurement.  Needs a
-CUDA card; imports nothing of JAX.
+DIR holds earlier versions of some of ``forest_eval.cu`` (with
+``forest_walk.cuh``), ``train_features.cu`` and ``components.cu`` (for
+example ``git show REV:beats3d_tpu_torch/csrc/FILE``); an earlier K1 entry
+takes a ``lanes`` argument, its B1 entry may take one or not, as its source
+says.  The script builds what DIR holds with the port's nvcc flags into
+``build/``, checks that the earlier and the current kernels give the plain
+versions' outputs, and times them in turns (earlier, current, current,
+earlier) from CUDA graphs, for each source DIR holds:
+
+* components.cu (``grouping_turns``): the earlier stage, its union-find
+  launch (``b3d_label_components``) with the tensor operations the frame
+  ran around it, against the fused grouping kernel, live and batched,
+  with each one's device operations per call;
+* train_features.cu: B4 (``b4_turns``);
+* forest_eval.cu: B1 (``b1_turns``, then each lane grouping,
+  ``b1_variant``, and the dense forest's repack into K1's tables,
+  ``b1_repack``) and K1 (``k1_turns``, then each lane grouping,
+  ``k1_sweep``).
+
+The B4 and B1 designs that measured slower (pixel lanes with the proposals
+split over warps, 4 or 8 pixels per warp step, a reciprocal fast path for
+the divisions, lanes along the walk, reading the next level ahead) are not
+kept; their times are in PERF.md.  It prints one JSON line per
+measurement.  Needs a CUDA card; imports nothing of JAX.
 
 The inputs are the ones ``chip_smoke.py`` uses: the committed flagship, 16
 articulated two-hand 848x480 scenes (seeds 1000-1015) and a RANSAC plane
@@ -47,8 +57,8 @@ import torch
 from .data.synth import articulated_scene, part_labels
 from .models import LayeredDecisionForest
 from .models.forest import PackedForest, forest_dims, kernel_tables
-from .ops import (cuda_lib, forest_eval, forest_eval_cuda, points,
-                  train_features, train_features_cuda)
+from .ops import (components, cuda_lib, forest_eval, forest_eval_cuda,
+                  points, train_features, train_features_cuda)
 from .ops import plane as plane_ops
 from .runtime import pipeline as pl
 from .train.proposals import make_random_features
@@ -171,12 +181,10 @@ def serpentine(h=60, w=106):
     return m
 
 
-def mipmap_masks(inp: BenchInputs):
-    """(16, 60, 106) bool: the bench scenes' group masks at the pipeline's
-    grouping size (K2's output at the 1/8 mipmap level, > 0)."""
-    cfg = inp.pipe.cfg
-    depth1 = pl._band_gauss(inp.frames, inp.plane, inp.pipe, cfg)
-    return points.shrink_image(depth1, cfg.depth_mm_level) > 0
+def grouping_depth(inp: BenchInputs):
+    """(16, 480, 848) int32: the bench scenes' K2 output, the grouping
+    stage's input."""
+    return pl._band_gauss(inp.frames, inp.plane, inp.pipe, inp.pipe.cfg)
 
 
 def hand_frames(intrin, seeds):
@@ -319,6 +327,22 @@ def b4_work(depth, props, active):
     return bytes_moved, 10 * pixels * p
 
 
+def grouping_work(b, h, w, mode):
+    """(bytes, operations) of the grouping kernel on b images of h x w
+    (the shrunk size) in ``mode``: "labels" reads the bool mask and writes
+    int64 labels; "groups" reads the int32 depth at stride (one value a
+    pixel) and the pct scalar and writes int32 groups and the 24-byte
+    g_info; "stage" also writes int32 grown.  Operations per pixel: the
+    mask and its left and up tests (3), then the sums (3) and the group
+    tests (2), then the grow's four neighbour tests (4)."""
+    n = b * h * w
+    if mode == "labels":
+        return 9 * n, 3 * n
+    if mode == "groups":
+        return 8 * n + 24 * b + 4, 8 * n
+    return 12 * n + 24 * b + 4, 12 * n
+
+
 def k2_work(depth):
     """(bytes, operations) of K2: each depth pixel read once and each output
     written once; per pixel the deprojection and plane test (12 operations,
@@ -328,18 +352,30 @@ def k2_work(depth):
 
 # ------------------------------------------------ the earlier kernels
 
+PARENT_SOURCES = ("forest_eval.cu", "train_features.cu", "components.cu")
+
+
 def build_parent(src_dir):
-    """Build the earlier forest_eval.cu and train_features.cu of ``src_dir``
-    (with its forest_walk.cuh) into build/beats3d_tpu_torch_parent/ with the
-    port's flags; return the loaded library, nvcc's log, and whether its B1
-    entry takes ``lanes``."""
-    srcs = [os.path.join(src_dir, f)
-            for f in ("forest_eval.cu", "train_features.cu")]
-    with open(srcs[0]) as fh:
-        entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", fh.read())
-    b1_lanes = entry is not None and "int lanes" in entry.group(1)
+    """Build the earlier kernels of ``src_dir`` (any of forest_eval.cu with
+    its forest_walk.cuh, train_features.cu and components.cu) into
+    build/beats3d_tpu_torch_parent/ with the port's flags; return the
+    loaded library, nvcc's log, the names of the sources built, and
+    whether its B1 entry takes ``lanes``."""
+    srcs = [os.path.join(src_dir, f) for f in PARENT_SOURCES
+            if os.path.exists(os.path.join(src_dir, f))]
+    if not srcs:
+        raise SystemExit(f"kernel_bench: {src_dir} holds none of "
+                         f"{PARENT_SOURCES}")
+    names = {os.path.basename(f) for f in srcs}
+    b1_lanes = False
+    if "forest_eval.cu" in names:
+        with open(srcs[0]) as fh:
+            entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", fh.read())
+        b1_lanes = entry is not None and "int lanes" in entry.group(1)
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for f in srcs + [os.path.join(src_dir, "forest_walk.cuh")]:
+    hashed = srcs + [f for f in (os.path.join(src_dir, "forest_walk.cuh"),)
+                     if os.path.exists(f)]
+    for f in hashed:
         with open(f, "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(ROOT, "build", "beats3d_tpu_torch_parent")
@@ -352,16 +388,21 @@ def build_parent(src_dir):
         raise RuntimeError(f"nvcc failed on the earlier kernels:\n{proc.stderr}")
     lib = ctypes.CDLL(path)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.b3d_evaluate_layered.argtypes = [
-        vp, vp, i, i, i, i, f, ctypes.POINTER(cuda_lib.LayerDesc), i, vp, i,
-        i, vp]
-    lib.b3d_evaluate_layered.restype = i
-    lib.b3d_evaluate_forest.argtypes = [
-        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, *[i] * b1_lanes, vp]
-    lib.b3d_evaluate_forest.restype = i
-    lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
-    lib.b3d_train_feature_bits.restype = i
-    return lib, proc.stdout + proc.stderr, b1_lanes
+    if "forest_eval.cu" in names:
+        lib.b3d_evaluate_layered.argtypes = [
+            vp, vp, i, i, i, i, f, ctypes.POINTER(cuda_lib.LayerDesc), i, vp,
+            i, i, vp]
+        lib.b3d_evaluate_layered.restype = i
+        lib.b3d_evaluate_forest.argtypes = [
+            vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, *[i] * b1_lanes, vp]
+        lib.b3d_evaluate_forest.restype = i
+    if "train_features.cu" in names:
+        lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
+        lib.b3d_train_feature_bits.restype = i
+    if "components.cu" in names:
+        lib.b3d_label_components.argtypes = [vp, vp, i, i, i, vp]
+        lib.b3d_label_components.restype = i
+    return lib, proc.stdout + proc.stderr, names, b1_lanes
 
 
 def _stream():
@@ -422,6 +463,41 @@ def bits_runner(lib):
     return run
 
 
+def parent_stage(lib):
+    """The earlier grouping stage (an earlier components.cu's
+    ``b3d_label_components``, the union-find launch, with the tensor
+    operations around it that the frame ran before the fused kernel):
+    shrink, labels, the selection in tensor operations, the grow."""
+    def labels(mask):
+        m = mask.contiguous()
+        out = torch.empty(m.shape, dtype=torch.int64, device=m.device)
+        _check(lib.b3d_label_components(m.data_ptr(), out.data_ptr(),
+                                        *m.shape, _stream()),
+               "earlier union-find")
+        return out
+
+    def run(depth1, level, pct):
+        small = points.shrink_image(depth1, level)
+        groups, g_info = components.make_hand_groups_plain(small, pct,
+                                                           label=labels)
+        return points.grow_groups(groups), g_info, groups
+    return run
+
+
+def device_ops(fn):
+    """Device operations (kernels, copies, sets) of one call of fn, from a
+    torch.profiler trace, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def turns(old, new, iters=20):
     """Times of old and new in the order old, new, new, old."""
     t = [graph_ms(old, iters), graph_ms(new, iters), graph_ms(new, iters),
@@ -478,11 +554,40 @@ def bench_b1(lib, b1_lanes, new_lib, model, dev, smi):
         ms=graph_ms(lambda: kernel_tables(one)))
 
 
+def bench_grouping(lib, inp, smi):
+    """The earlier grouping stage (its union-find launch and the tensor
+    operations around it) against the fused kernel on the live frame and
+    the batch of 16: both equal to the plain composition, their device
+    operations per call, and their times in turns from CUDA graphs."""
+    old = parent_stage(lib)
+    new = components.hand_groups_grown
+    depth1 = grouping_depth(inp)
+    level, pct = inp.pipe.cfg.depth_mm_level, inp.pipe.gms
+    for name, d in (("live", depth1[:1]), ("batch", depth1)):
+        want = components.hand_groups_grown_plain(d, level, pct)
+        mism = []
+        for fn in (old, new):
+            got = fn(d, level, pct)
+            torch.cuda.synchronize()
+            mism.append(sum(int((a.view(torch.int32) != b.view(torch.int32))
+                                .sum()) for a, b in zip(got, want)))
+        hs, ws = want[2].shape[-2:]
+        bms, by = bound(*grouping_work(d.shape[0], hs, ws, "stage"))
+        t = turns(lambda: old(d, level, pct), lambda: new(d, level, pct))
+        say("grouping_turns", card=smi, case=name, dims=list(d.shape),
+            mismatches_old_new_vs_plain=mism,
+            device_ops_old_new=[device_ops(lambda: old(d, level, pct)),
+                                device_ops(lambda: new(d, level, pct))],
+            bound_ms=bms, bound_by=by, share_old=bms / t["old_mean_ms"],
+            share_new=bms / t["new_mean_ms"], **t)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
-                    help="directory with the earlier forest_eval.cu, "
-                         "forest_walk.cuh and train_features.cu")
+                    help="directory with earlier versions of some of "
+                         "forest_eval.cu (and forest_walk.cuh), "
+                         "train_features.cu and components.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA device")
@@ -491,13 +596,19 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     say("device", card=smi)
-    lib, log, b1_lanes = build_parent(args.parent)
+    lib, log, names, b1_lanes = build_parent(args.parent)
     new_lib = cuda_lib.library()
-    say("build", parent_ptxas=cuda_lib.ptxas_summary(log),
+    say("build", parent_sources=sorted(names),
+        parent_ptxas=cuda_lib.ptxas_summary(log),
         ptxas=cuda_lib.ptxas_summary(cuda_lib.LIBRARY.build.log))
     inp = bench_inputs(dev)
+    if "components.cu" in names:
+        bench_grouping(lib, inp, smi)
+    if "train_features.cu" in names:
+        bench_b4(lib, inp.intrin, dev, smi)
+    if "forest_eval.cu" not in names:
+        return 0
     m = inp.model
-    bench_b4(lib, inp.intrin, dev, smi)
     bench_b1(lib, b1_lanes, new_lib, m, dev, smi)
     K1 = forest_eval_cuda.evaluate_layered_cuda
     descs = forest_eval_cuda.layer_descs(m.layers, dev)

@@ -1,23 +1,34 @@
 """Connected components + two-hand group selection on the device (counterpart
-of beats3d_tpu/ops/components.py).
+of beats3d_tpu/ops/components.py), and the frame's whole grouping stage.
 
-Labelling: :func:`label_components` launches the union-find kernel
-(csrc/components.cu) for CUDA tensors, the counterpart of the JAX package's
-``lax.while_loop``: the loop runs to its fixpoint on the card, one block
-per image, with no host read.  For CPU tensors it runs the plain version,
-:func:`label_components_plain`: union-find to a fixpoint in rounds of 8
-neighbour-min propagations (shifts only) and two pointer-jumping
-compressions ``lab = lab[lab]`` (an index gather; the JAX package's one-hot
-matmul gather is a TPU workaround), with its fixpoint test read on the host
-once per round.  Labels converge to the minimum linear index of each
-4-connected component, whatever the order of work, so both equal the JAX
-package's exactly.  There is no fallback from one to the other.
+One kernel, ``hand_groups`` in csrc/components.cu, serves three entries for
+CUDA tensors, one block per image, with no host read:
+
+* :func:`hand_groups_grown` (the frame programs' stage): shrink, labels,
+  selection, groups and the 1-pixel grow in one launch;
+* :func:`make_hand_groups`: the same without the grow;
+* :func:`label_components`: the labels only.
+
+For CPU tensors each runs its plain version, the composition the JAX
+package computes: :func:`label_components_plain`, union-find to a fixpoint
+in rounds of 8 neighbour-min propagations (shifts only) and two
+pointer-jumping compressions ``lab = lab[lab]`` (an index gather; the JAX
+package's one-hot matmul gather is a TPU workaround), with its fixpoint
+test read on the host once per round; :func:`make_hand_groups_plain`, the
+selection in tensor operations; and ``points.shrink_image`` and
+``points.grow_groups`` around them.  Labels converge to the minimum linear
+index of each 4-connected component, whatever the order of work, so the
+kernel and the plain versions equal the JAX package's exactly.  There is no
+fallback from one to the other.
 
 Selection: components of size <= pct_thresh * num_pixels are discarded;
 among the rest, the largest with centroid x < W/2 becomes group 1 ("right
 hand": the image is mirrored) and the largest with centroid x >= W/2 group
-2.  Ties go to the smaller root, the first maximum of ``argmax``.  Per-root
-sums use ``scatter_add`` in float32, exact below 2**24.
+2.  Ties go to the smaller root, the first maximum of ``argmax``.  The
+kernel sums each root's size, x and y as integers; the plain version's
+float32 ``scatter_add`` gives the same values while they stay below 2**24,
+which holds for every image of up to ``MAX_PIXELS`` pixels whose sides are
+at most 578 (an image's sum of x is at most n (W - 1) / 2).
 
 Functions take a leading batch dimension or none.
 """
@@ -27,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import cuda_lib, points
 
 # One block's shared memory on the H100 (227 KB) holds the kernel's int32
 # labels of one image.
@@ -35,8 +46,8 @@ MAX_PIXELS = 232448 // 4
 
 
 def label_components_plain(mask):
-    """The union-find kernel's plain version, on any device: 4-connected
-    component labels of a boolean mask (..., H, W).
+    """The kernel's plain labels, on any device: 4-connected component
+    labels of a boolean mask (..., H, W).
 
     Returns int64 labels of the same shape: for mask pixels the linear index
     (within its image) of the component root, the minimum index of the
@@ -78,59 +89,17 @@ def label_components_plain(mask):
     return lab.reshape(*lead, h, w)
 
 
-def label_components(mask):
-    """4-connected component labels of a boolean mask (..., H, W), as
-    :func:`label_components_plain` returns them: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor.
-
-    On CUDA: an image of more than ``MAX_PIXELS`` pixels raises ValueError;
-    returns int64 (the kernel writes the labels of one image per block).
-    """
-    if mask.device.type != "cuda":
-        return label_components_plain(mask)
-    lead = mask.shape[:-2]
-    h, w = mask.shape[-2:]
-    if h * w > MAX_PIXELS:
-        raise ValueError(
-            f"label_components: a {h}x{w} image has {h * w} pixels; the "
-            f"kernel holds at most {MAX_PIXELS} (one block's 227 KB of shared "
-            "memory as int32 labels)")
-    m = mask.reshape(-1, h, w).to(torch.bool).contiguous()
-    out = torch.empty(m.shape, dtype=torch.int64, device=mask.device)
-    lib = cuda_lib.library()
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.b3d_label_components(m.data_ptr(), out.data_ptr(),
-                                          m.shape[0], h, w, stream)
-    cuda_lib.check(status, "label_components")
-    label_components.launches += 1
-    return out.reshape(*lead, h, w)
-
-
-# Kernel launches so far (the CPU path does not count).
-label_components.launches = 0
-
-
-def make_hand_groups(depth_small, pct_thresh):
-    """Connected components on a small depth image + left/right hand
-    selection.
-
-    depth_small: (..., H, W) integer depth (the 1/8 mipmap level).
-    pct_thresh: minimum component size as a fraction of the image (strictly
-    greater passes): a number, or a float32 scalar tensor on the depth's
-    device (the pipeline's ``gms``), which a CUDA graph reads in place.
-
-    Returns groups (..., H, W) in the depth's dtype (1 right-hand component,
-    2 left-hand component, 0 elsewhere) and g_info (..., 2, 3) float32 rows
-    (size, centroid_x, centroid_y) for (right, left); size 0 = no group.
-    """
+def make_hand_groups_plain(depth_small, pct_thresh, label=None):
+    """:func:`make_hand_groups` in tensor operations, on any device.
+    ``label``: the labelling of a (B, H, W) bool mask (default
+    :func:`label_components_plain`)."""
     lead = depth_small.shape[:-2]
     h, w = depth_small.shape[-2:]
     n = h * w
     dev = depth_small.device
     mask = depth_small.reshape(-1, h, w).to(torch.int32) > 0
     b = mask.shape[0]
-    labels = label_components(mask)
+    labels = (label or label_components_plain)(mask)
 
     seg = labels.reshape(b, n).clamp(max=n - 1)
     ones = mask.reshape(b, n).to(torch.float32)
@@ -178,3 +147,129 @@ def make_hand_groups(depth_small, pct_thresh):
     ], dim=1)
     return (groups.reshape(*lead, h, w).to(depth_small.dtype),
             g_info.reshape(*lead, 2, 3))
+
+
+def hand_groups_grown_plain(depth1, level: int, pct_thresh):
+    """:func:`hand_groups_grown` in tensor operations, on any device: the
+    composition ``shrink_image`` -> :func:`make_hand_groups_plain` ->
+    ``grow_groups``."""
+    small = points.shrink_image(depth1, level)
+    groups, g_info = make_hand_groups_plain(small, pct_thresh)
+    return points.grow_groups(groups), g_info, groups
+
+
+def _hand_groups_cuda(depth, level, pct_thresh, *, labels=False, grown=False):
+    """One launch of the hand_groups kernel on depth (..., H, W), a CUDA
+    tensor, at mipmap ``level``.  Returns the (B, h, w) int64 labels, or
+    (groups, g_info, grown or None) with groups and grown (B, h, w) int32
+    and g_info (B, 2, 3) float32."""
+    hh, ww = depth.shape[-2:]
+    f = 1 << level
+    h, w = -(-hh // f), -(-ww // f)
+    if h * w > MAX_PIXELS:
+        raise ValueError(
+            f"hand_groups: a {h}x{w} image has {h * w} pixels; the kernel "
+            f"holds at most {MAX_PIXELS} (one block's 227 KB of shared "
+            "memory as int32 labels)")
+    if h * w == 0 and not labels:
+        raise ValueError(f"hand_groups: a {h}x{w} image has no pixels")
+    dev = depth.device
+    d = depth.reshape(-1, hh, ww).to(torch.int32)
+    b = d.shape[0]
+    sb, sh, sw = d.stride()
+    lib = cuda_lib.library()
+    if labels:
+        out = torch.empty((b, h, w), dtype=torch.int64, device=dev)
+        pct = scratch = groups = grown_t = g_info = None
+    else:
+        pct = (pct_thresh if torch.is_tensor(pct_thresh) else torch.full(
+            (), float(pct_thresh), dtype=torch.float32, device=dev))
+        pct = pct.to(device=dev, dtype=torch.float32)
+        if pct.numel() != 1:
+            raise ValueError(f"hand_groups: pct_thresh has {pct.numel()} "
+                             "values, want one")
+        ints = lib.b3d_hand_groups_scratch(h, w)
+        scratch = (torch.empty(b * ints, dtype=torch.int32, device=dev)
+                   if ints else None)
+        groups = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+        grown_t = (torch.empty((b, h, w), dtype=torch.int32, device=dev)
+                   if grown else None)
+        g_info = torch.empty((b, 2, 3), dtype=torch.float32, device=dev)
+        out = None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.b3d_hand_groups(
+            d.data_ptr(), sb, sh * f, sw * f, b, h, w, ptr(pct), ptr(out),
+            ptr(groups), ptr(grown_t), ptr(g_info), ptr(scratch), stream)
+    cuda_lib.check(status, "hand_groups")
+    return out if labels else (groups, g_info, grown_t)
+
+
+def label_components(mask):
+    """4-connected component labels of a boolean mask (..., H, W), as
+    :func:`label_components_plain` returns them: the kernel's labels-only
+    mode for a CUDA tensor, the plain version for a CPU tensor.
+
+    On CUDA: an image of more than ``MAX_PIXELS`` pixels raises ValueError;
+    returns int64.
+    """
+    if mask.device.type != "cuda":
+        return label_components_plain(mask)
+    out = _hand_groups_cuda(mask, 0, None, labels=True)
+    label_components.launches += 1
+    return out.reshape(mask.shape)
+
+
+def make_hand_groups(depth_small, pct_thresh):
+    """Connected components on a small depth image + left/right hand
+    selection: the kernel without the grow for a CUDA tensor, the plain
+    version for a CPU tensor.
+
+    depth_small: (..., H, W) integer depth (the 1/8 mipmap level).
+    pct_thresh: minimum component size as a fraction of the image (strictly
+    greater passes): a number, or a float32 scalar tensor on the depth's
+    device (the pipeline's ``gms``), which the kernel reads in place.
+
+    Returns groups (..., H, W) in the depth's dtype (1 right-hand component,
+    2 left-hand component, 0 elsewhere) and g_info (..., 2, 3) float32 rows
+    (size, centroid_x, centroid_y) for (right, left); size 0 = no group.
+    """
+    if depth_small.device.type != "cuda":
+        return make_hand_groups_plain(depth_small, pct_thresh)
+    lead = depth_small.shape[:-2]
+    groups, g_info, _ = _hand_groups_cuda(depth_small, 0, pct_thresh)
+    make_hand_groups.launches += 1
+    return (groups.reshape(depth_small.shape).to(depth_small.dtype),
+            g_info.reshape(*lead, 2, 3))
+
+
+def hand_groups_grown(depth1, level: int, pct_thresh):
+    """The frame's grouping stage: ``depth1[..., ::2**level, ::2**level]``
+    -> :func:`make_hand_groups` -> ``points.grow_groups``, one kernel
+    launch for a CUDA tensor (the shrunk image read at stride, with no
+    copy), the plain composition for a CPU tensor.
+
+    depth1 (..., H, W) integer depth; pct_thresh as for
+    :func:`make_hand_groups`.  Returns (grown, g_info, groups_small): grown
+    and groups_small (..., Hs, Ws) in depth1's dtype, g_info (..., 2, 3)
+    float32.
+    """
+    if depth1.device.type != "cuda":
+        return hand_groups_grown_plain(depth1, level, pct_thresh)
+    lead = depth1.shape[:-2]
+    groups, g_info, grown = _hand_groups_cuda(depth1, level, pct_thresh,
+                                              grown=True)
+    hand_groups_grown.launches += 1
+    shape = (*lead, *groups.shape[-2:])
+    return (grown.reshape(shape).to(depth1.dtype), g_info.reshape(*lead, 2, 3),
+            groups.reshape(shape).to(depth1.dtype))
+
+
+# Kernel launches so far, per wrapper (the CPU path does not count).
+label_components.launches = 0
+make_hand_groups.launches = 0
+hand_groups_grown.launches = 0

@@ -162,8 +162,11 @@ def _bind(lib):
     lib.b3d_forest_pdf_sum.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
-    lib.b3d_label_components.argtypes = [vp, vp, i, i, i, vp]
-    lib.b3d_label_components.restype = i
+    ll = ctypes.c_longlong
+    lib.b3d_hand_groups_scratch.argtypes = [i, i]
+    lib.b3d_hand_groups_scratch.restype = ll
+    lib.b3d_hand_groups.argtypes = [vp, ll, ll, ll, i, i, i, *[vp] * 7]
+    lib.b3d_hand_groups.restype = i
     # the scripts/ probes (beats3d_tpu_torch/probes): pointers, ints, stream
     for name, n_ptrs, n_ints in (
             ("b3d_probe_opcost", 3, 3), ("b3d_probe_reduce", 2, 3),

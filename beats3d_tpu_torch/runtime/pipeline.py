@@ -5,9 +5,10 @@ One depth frame in, fingertip heights out:
 
     raw depth (H, W)
       -> plane-band filter + missing-aware 5x5 gaussian   (kernel K2)
-      -> 1/8 mipmap shrink -> connected components +
-         left/right hand selection on the device          (ops.components)
-      -> grow + per-hand crop and stencil (the left hand
+      -> 1/8 mipmap shrink -> connected components ->
+         left/right hand selection -> 1-pixel grow, one
+         launch of the grouping kernel                     (ops.components)
+      -> per-hand crop and stencil (the left hand
          mirrored, so the right-hand model applies)        (ops.points)
       -> layered decision forest, both hands in one launch (kernel K1)
       -> per-class mean-shift modes                         (ops.meanshift)
@@ -18,7 +19,7 @@ The tap-detection state machine and MIDI stay on the host (runtime.app).
 The frame programs (:func:`frame_step`, and for the batched call
 ``_batched_crop_program`` / ``_batched_full_program``) read nothing back to
 the host: crop origins, the crop-or-full choice, the budgeted rescue and
-union-find's fixpoint all stay on the device.  On CUDA, FramePipeline
+the grouping stage all stay on the device.  On CUDA, FramePipeline
 captures each program once per input shape as a CUDA graph and replays it
 (the counterpart of ``jax.jit``); the batched call makes one 4-byte read,
 whether to run every frame full-frame.  ``vmap`` becomes an explicit batch
@@ -26,8 +27,8 @@ dimension.
 
 Depth is carried as int32 inside (PyTorch's uint16 support is thin); the
 outputs keep the JAX program's dtypes.  The backend follows the model's
-device: ``"cuda"`` (kernels K1 and K2) for a CUDA model, ``"torch"`` (their
-plain versions) for a CPU model.
+device: ``"cuda"`` (kernels K1, K2 and the grouping kernel) for a CUDA
+model, ``"torch"`` (their plain versions) for a CPU model.
 """
 
 from __future__ import annotations
@@ -130,11 +131,10 @@ def _band_gauss(raw_depth, plane_mat, pipe, cfg):
 
 
 def _front_rest(depth1, group_min_size, cfg):
-    """Shrink -> components -> grow, over a (B, H, W) batch."""
-    small = points.shrink_image(depth1, cfg.depth_mm_level)
-    groups_small, g_info = components.make_hand_groups(small, group_min_size)
-    grown = points.grow_groups(groups_small)
-    return grown, g_info, groups_small
+    """Shrink -> components -> grow, over a (B, H, W) batch: one launch of
+    the grouping kernel on CUDA."""
+    return components.hand_groups_grown(depth1, cfg.depth_mm_level,
+                                        group_min_size)
 
 
 def _full_stencils(depth1, grown, cfg):
@@ -449,7 +449,7 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
 # their launch counts around its capture to learn its launches per replay.
 FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
                  preproc_cuda.plane_band_gauss_cuda,
-                 components.label_components)
+                 components.hand_groups_grown)
 
 
 class FrameGraph:

@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from csrc/ and holds each against its plain
 PyTorch version at its path's shapes: K2 bit for bit at B = 1 and 16, K1
 with 0 label mismatches against plain and the flagship golden on the
 golden frames and the pipeline's live (2) and batched (32) hand crops,
-union-find bit for bit on the 16 scenes' 1/8 mipmaps and the serpentine.
+the grouping kernel bit for bit in its labels-only, hand-groups and stage
+modes on the 16 scenes' K2 output (live and batched), the oversized-hand
+frame, the serpentine and a checkerboard.
 Then drives the port's paths:
 
 * the frame's CUDA graphs against the eager programs, bit for bit: the 16
@@ -17,7 +19,8 @@ Then drives the port's paths:
   synthetic frames, RANSAC plane, a warm tick then 60 timed ticks
   pipelined and 60 not, median and spread) and five batched calls, each a
   replayed CUDA graph through K1 (layered forest), K2 (plane band +
-  gaussian) and union-find, then 32 live ticks of each mode and 5 batched
+  gaussian) and the grouping kernel (shrink, labels, hand selection and
+  grow in one launch), then 32 live ticks of each mode and 5 batched
   calls under torch.profiler (after one traced warm-up call): device
   operations, device ms, idle share, host syncs, copies by direction,
   graph replays and the kernels' launches traced by name, which must
@@ -150,10 +153,11 @@ K2 = preproc_cuda.plane_band_gauss_cuda
 B1 = forest_eval_cuda.evaluate_forest_cuda
 B4 = train_features_cuda.train_feature_bits_cuda
 B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
-UF = components.label_components
-# the frame kernels' names in a profiler trace: K1, K2, union-find
+GK = components.hand_groups_grown
+# the frame kernels' names in a profiler trace: K1, K2, the grouping kernel
 FRAME_KERNEL_NAMES = ("evaluate_layered_kernel", "plane_band_gauss_kernel",
-                      "label_components_kernel")
+                      "hand_groups_kernel")
+FRAME_KERNEL_KEYS = ("k1", "k2", "grouping")
 APP_FRAMES = 60
 PIPELINE_CHECK_FRAMES = 60       # ticks after the warm-up, in each mode
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
@@ -340,18 +344,18 @@ def device_profile(prof, calls, wall_ms, ranges=()):
 
 
 def counts():
-    """The launch counts of the frame's kernels (K1, K2, union-find): their
+    """The launch counts of the frame's kernels (K1, K2, grouping): their
     wrappers' calls, which a CUDA graph's warm-up and capture make and its
     replays do not."""
-    return tuple(k.launches for k in (K1, K2, UF))
+    return tuple(k.launches for k in (K1, K2, GK))
 
 
 def captured_launches(pipe):
-    """The (K1, K2, union-find) launches ``pipe``'s graphs made through the
+    """The (K1, K2, grouping) launches ``pipe``'s graphs made through the
     wrappers: each graph's warm-up and its capture, so twice its launches
     per replay."""
     return tuple(sum(2 * g.launches[k.__name__] for g in pipe.graphs.values())
-                 for k in (K1, K2, UF))
+                 for k in (K1, K2, GK))
 
 
 def pool_mb(frame_graph):
@@ -457,8 +461,8 @@ def profiled(run, calls, pipe):
         raise AssertionError(f"a wrapper launched in the window: "
                              f"{before} -> {counts()}")
     res["traced"] = {}
-    for name, kernel, needle in zip(("k1", "k2", "union_find"),
-                                    (K1, K2, UF), FRAME_KERNEL_NAMES):
+    for name, kernel, needle in zip(FRAME_KERNEL_KEYS, (K1, K2, GK),
+                                    FRAME_KERNEL_NAMES):
         n, ms = kernel_device_ms(prof, needle)
         want = sum((g.replays - replays.get(key, 0)) * g.launches[
             kernel.__name__] for key, g in pipe.graphs.items())
@@ -491,9 +495,9 @@ def phase_main_path(inp, smi):
     call, each a replayed CUDA graph: host ms per call (the median and
     spread of APP_FRAMES ticks of each mode after a warm tick, and of 5
     batched calls), then a torch.profiler window of each for device
-    operations, device ms, idle share, graph replays, K1/K2/union-find
+    operations, device ms, idle share, graph replays, K1/K2/grouping
     launches, host syncs and copies.  Returns the launches traced in the
-    windows (K1, K2, union-find) and the wrappers' counts over the run."""
+    windows (K1, K2, grouping) and the wrappers' counts over the run."""
     model, frames, plane = inp.model, inp.frames, inp.plane
     source = SyntheticSource(inp.intrin)
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
@@ -503,7 +507,7 @@ def phase_main_path(inp, smi):
                 + 2 * (1 + PROFILED_FRAMES))
     synth = [f for f, _ in zip(source.frames(), range(n_frames))]
     it = iter(synth)
-    K1.launches = K2.launches = UF.launches = 0
+    K1.launches = K2.launches = GK.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
     t_cal = time.perf_counter()
@@ -543,7 +547,7 @@ def phase_main_path(inp, smi):
                                   PROFILED_BATCHES, app.pipeline)
     wrapper = counts()
     traced = tuple(sum(w["traced"][k] for w in windows.values())
-                   for k in ("k1", "k2", "union_find"))
+                   for k in FRAME_KERNEL_KEYS)
     live = app.pipeline.graphs[("frame_step", tuple(frames.shape[1:]))]
     ticks = len(synth) - sum(1 for _ in it) - app.cfg.warmup_frames
 
@@ -581,8 +585,8 @@ def phase_main_path(inp, smi):
         ms_per_tick=ms_tick, batch=BATCH, ms_per_batched_call=ms_batch,
         fps_batched=BATCH * 1e3 / ms_batch["median"],
         k1_launches_traced=traced[0], k2_launches_traced=traced[1],
-        union_find_launches_traced=traced[2],
-        wrapper_launches=dict(zip(("k1", "k2", "union_find"), wrapper)),
+        grouping_launches_traced=traced[2],
+        wrapper_launches=dict(zip(FRAME_KERNEL_KEYS, wrapper)),
         profiled=windows, graphs=graph_table(app.pipeline),
         hands_per_frame=hands.tolist(), valid_tips_batch=n_valid,
         valid_tips_app=app_valid, midi_events=len(app.midi.sink.events))
@@ -662,33 +666,69 @@ def phase_graph_vs_eager(inp, smi):
                              f"{too_big}")
 
 
+def grouping_runs(depth, level, pct):
+    """The grouping kernel's modes on depth (B, H, W) int32 at ``level``:
+    name -> (kernel call, plain call)."""
+    f = 1 << level
+    small = depth[..., ::f, ::f]
+    mask = small > 0
+    return {
+        "labels": (lambda: components.label_components(mask),
+                   lambda: components.label_components_plain(mask)),
+        "groups": (lambda: components.make_hand_groups(small, pct),
+                   lambda: components.make_hand_groups_plain(small, pct)),
+        "stage": (lambda: GK(depth, level, pct),
+                  lambda: components.hand_groups_grown_plain(depth, level,
+                                                             pct)),
+    }
+
+
 def phase_components(inp, smi):
-    """The union-find kernel against its plain loop on the 16 scenes'
-    mipmaps (one launch for the batch, one per live frame) and the
-    serpentine; device time from a CUDA graph, plain time from the host."""
-    masks = kb.mipmap_masks(inp)
-    cases = {"live": masks[:1].contiguous(), "batch": masks,
-             "serpentine": torch.as_tensor(kb.serpentine(),
-                                           device=masks.device)[None]}
+    """The grouping kernel against its plain versions, bit for bit, in its
+    labels-only, hand-groups and stage modes: the 16 scenes' K2 output at
+    the pipeline's level 3 (one launch for the batch, one for a live
+    frame), the oversized-hand frame, and the serpentine and a
+    checkerboard at 60x106.  Device time from a CUDA graph, plain time
+    from the host; the bound from the bytes each mode must move."""
+    cfg, pct = inp.pipe.cfg, inp.pipe.gms
+    level = cfg.depth_mm_level
+    depth1 = kb.grouping_depth(inp)
+    big = pl._band_gauss(
+        inp.pipe.as_depth(kb.oversized(inp.scenes[1], inp.intrin))[None],
+        inp.plane, inp.pipe, cfg)
+    hs, ws = depth1[0, ::1 << level, ::1 << level].shape
+    cb = np.indices((hs, ws)).sum(0) % 2
+    cases = {
+        "live": (depth1[:1], level), "batch": (depth1, level),
+        "oversized": (big, level),
+        "serpentine": (torch.as_tensor(kb.serpentine(hs, ws)[None]).to(
+            depth1), 0),
+        "checkerboard": (torch.as_tensor(cb[None]).to(depth1), 0),
+    }
     res = {}
-    for name, m in cases.items():
-        got = UF(m)
-        want = components.label_components_plain(m)
-        torch.cuda.synchronize()
-        mism = int((got != want).sum())
-        n = m.numel()
-        # a sweep that checks the fixpoint: 4 neighbour compares and a
-        # select per pixel; the bytes: the mask in, int64 labels out
-        bound_ms, bound_by = kb.bound(n * 9, 5 * n)
-        res[name] = dict(
-            mismatches=mism, max_abs_err=int((got - want).abs().max()),
-            ms=graph_ms(lambda: UF(m)),
-            plain_ms=host_ms(lambda: components.label_components_plain(m)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        say("components_vs_plain", card=smi, case=name, shape=list(m.shape),
-            **res[name])
-        if mism:
-            raise AssertionError(f"union-find on {name}: {mism} mismatches")
+    for name, (depth, lvl) in cases.items():
+        for mode, (kernel, plain) in grouping_runs(depth, lvl, pct).items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            mism = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                       if a.is_floating_point() else int((a != b).sum())
+                       for a, b in zip(got, want))
+            max_err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+            bound_ms, bound_by = kb.bound(*kb.grouping_work(
+                depth.shape[0], hs, ws, mode))
+            key = f"{name}/{mode}"
+            res[key] = dict(
+                mismatches=mism, max_abs_err=max_err,
+                ms=graph_ms(kernel), plain_ms=host_ms(plain),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            say("components_vs_plain", card=smi, case=name, mode=mode,
+                shape=list(depth.shape), level=lvl, **res[key])
+            if mism:
+                raise AssertionError(f"grouping kernel on {key}: {mism} "
+                                     "mismatches")
     return res
 
 
@@ -1451,7 +1491,7 @@ def phase_bag_path(inp, smi):
             return BeatsApp(inp.model, source, midi=Midi(), cfg=AppConfig(),
                             log=lambda *a: None)
 
-        K1.launches = K2.launches = UF.launches = 0
+        K1.launches = K2.launches = GK.launches = 0
         app = app_on(src)
         outs, walls, profiled_ticks = bag_drive(app, replay, BAG_PROFILED)
         launches = counts()
@@ -1914,19 +1954,20 @@ def main():
                         train_forest_d16)
     run("mesh_nccl", phase_mesh_nccl, inp, dev)
     run("mesh_dryrun", dryrun_multichip, 4, "cuda")
-    # K1, K2 and union-find run inside CUDA graphs on the main path: their
-    # launches are the kernel records traced in main_path's profiled
-    # windows (each held there to the graphs' replays)
+    # K1, K2 and the grouping kernel run inside CUDA graphs on the main
+    # path: their launches are the kernel records traced in main_path's
+    # profiled windows (each held there to the graphs' replays)
     kernels = [
         entry("evaluate_layered_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],
               k1["live"]),
         entry("plane_band_gauss_cuda", "preproc.cu",
               "beats3d_tpu/ops/preproc_pallas.py:126", launches[1], k2[1]),
-        entry("label_components", "components.cu",
-              "beats3d_tpu/ops/components.py:101 (the lax.while_loop of "
-              "label_components; not a pallas_call)", launches[2],
-              uf["live"]),
+        entry("hand_groups_grown", "components.cu",
+              "beats3d_tpu/ops/components.py:120 (the lax.while_loop of "
+              "label_components), :127-202 (make_hand_groups' selection) "
+              "and beats3d_tpu/ops/points.py:176 (grow_groups); not a "
+              "pallas_call", launches[2], uf["live/stage"]),
         entry("evaluate_forest_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
               dict(b1["golden_r1"], max_abs_err=max(

@@ -884,31 +884,103 @@ def bench():
     return kernel_bench.bench_inputs(torch.device("cuda", 0))
 
 
+def _grouping_modes(depth, level, pct):
+    """The grouping kernel's three modes against their plain versions on
+    depth (B, H, W): labels, make_hand_groups and the stage, bit for bit,
+    each one launch of its wrapper."""
+    from beats3d_tpu_torch.ops import components as c
+
+    f = 1 << level
+    small = depth[..., ::f, ::f]
+    runs = ((c.label_components, (small > 0,), c.label_components_plain),
+            (c.make_hand_groups, (small, pct), c.make_hand_groups_plain),
+            (c.hand_groups_grown, (depth, level, pct),
+             c.hand_groups_grown_plain))
+    for fn, args, plain in runs:
+        before = fn.launches
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, fn.__name__
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert a.dtype == b.dtype and a.shape == b.shape, fn.__name__
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (fn.__name__, tuple(depth.shape))
+
+
 @pytest.mark.cuda
 def test_components_kernel_matches_plain(cuda_dev, bench):
-    """The union-find kernel against its plain loop: the 16 bench scenes'
-    mipmaps (one launch for the batch, one per frame), the serpentine, and
-    noise in an image of 58,000 pixels (dynamic shared memory above
-    48 KB); an image past the limit raises."""
+    """The grouping kernel in its three modes (labels, hand groups, the
+    stage with the grow) against the plain versions: the 16 bench scenes'
+    K2 output at the pipeline's level 3 (one launch for the batch, one for
+    a live frame), random masks at 60x106 and 120x212 (the per-root sums
+    in the scratch), 1x1, 1xW and Hx1, exactly MAX_PIXELS (227x256), a
+    checkerboard, the serpentine and all on; an image one pixel past the
+    limit raises in every mode."""
     from beats3d_tpu_torch.ops import components
 
-    masks = kernel_bench.mipmap_masks(bench)
+    depth1 = kernel_bench.grouping_depth(bench)
+    pct = bench.pipe.gms
+    _grouping_modes(depth1, 3, pct)
+    _grouping_modes(depth1[5:6], 3, 0.06)
     rng = np.random.default_rng(3)
-    cases = [masks, masks[5],
-             torch.as_tensor(kernel_bench.serpentine(), device=cuda_dev),
-             torch.as_tensor(rng.random((2, 200, 290)) < 0.55,
-                             device=cuda_dev)]
-    for m in cases:
-        before = components.label_components.launches
-        got = components.label_components(m)
-        want = components.label_components_plain(m)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=cuda_dev)
+
+    for shape, frac, p in (((3, 60, 106), 0.5, 0.02),
+                           ((2, 120, 212), 0.55, 0.005),
+                           ((4, 1, 1), 0.5, 0.0), ((2, 1, 4000), 0.7, 0.0),
+                           ((2, 4000, 1), 0.7, 0.0),
+                           ((1, 227, 256), 0.55, 0.001)):
+        _grouping_modes(dev((rng.random(shape) < frac) * rng.integers(
+            1, 5000, shape)), 0, p)
+    cb = np.indices((60, 106)).sum(0) % 2
+    _grouping_modes(dev(cb[None] * 3), 0, 0.0)
+    _grouping_modes(dev(kernel_bench.serpentine()[None]), 0, 0.001)
+    _grouping_modes(dev(np.ones((2, 60, 106))), 0, 0.06)
+    over = torch.ones((1, 1, components.MAX_PIXELS + 1), dtype=torch.int32,
+                      device=cuda_dev)
+    for call in (lambda: components.label_components(over > 0),
+                 lambda: components.make_hand_groups(over, 0.06),
+                 lambda: components.hand_groups_grown(over, 0, 0.06)):
+        with pytest.raises(ValueError, match=str(components.MAX_PIXELS)):
+            call()
+
+
+@pytest.mark.cuda
+def test_grouping_kernel_reads_pct_at_each_replay(cuda_dev, bench):
+    """The stage captured in a CUDA graph reads its pct scalar in place: a
+    value written between two replays gives the plain answer for each
+    value, the replays equal the eager launch, and a replay moves no
+    launch count."""
+    from beats3d_tpu_torch.ops import components
+
+    depth1 = kernel_bench.grouping_depth(bench)
+    pct = torch.full((), 0.01, dtype=torch.float32, device=cuda_dev)
+    components.hand_groups_grown(depth1, 3, pct)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = components.hand_groups_grown(depth1, 3, pct)
+    captured = components.hand_groups_grown.launches
+    answers = []
+    for value in (0.01, 0.5, 0.01):
+        pct.fill_(value)
+        graph.replay()
         torch.cuda.synchronize()
-        assert components.label_components.launches == before + 1
-        assert got.dtype == torch.int64
-        assert torch.equal(got, want)
-    with pytest.raises(ValueError, match=str(components.MAX_PIXELS)):
-        components.label_components(
-            torch.ones((1, 241, 242), dtype=torch.bool, device=cuda_dev))
+        want = components.hand_groups_grown_plain(depth1, 3, value)
+        eager = components.hand_groups_grown(depth1, 3, value)
+        for a, b, e in zip(out, want, eager):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), e.view(torch.int32))
+        answers.append(out[1].clone())
+        captured += 1                 # the eager call's launch
+    assert components.hand_groups_grown.launches == captured
+    # 0.5 drops every hand of the bench scenes (each under half the image)
+    assert (answers[0][:, :, 0] > 0).any() and not (answers[1][:, :, 0] > 0).any()
+    assert torch.equal(answers[0], answers[2])
 
 
 def _assert_same(got, want, what):
@@ -927,15 +999,17 @@ def _assert_same(got, want, what):
 def test_graph_replay_matches_eager(cuda_dev, bench, monkeypatch):
     """FramePipeline's replayed graphs against the eager programs bit for
     bit: the 16 scenes and an oversized-hand frame one by one, and batches
-    with nbad = 0, 1 and 3 (the all-full-frame program); the plain
-    union-find loop never runs on the card."""
+    with nbad = 0, 1 and 3 (the all-full-frame program); no plain version
+    of the grouping stage runs on the card."""
     from beats3d_tpu_torch.ops import components
     from beats3d_tpu_torch.runtime import pipeline as pl
 
-    def no_plain(mask):
-        raise AssertionError("the plain union-find ran on the card")
+    def no_plain(*args):
+        raise AssertionError("a plain grouping version ran on the card")
 
-    monkeypatch.setattr(components, "label_components_plain", no_plain)
+    for name in ("label_components_plain", "make_hand_groups_plain",
+                 "hand_groups_grown_plain"):
+        monkeypatch.setattr(components, name, no_plain)
     pipe = pl.FramePipeline(bench.model, bench.intrin)
     big = pipe.as_depth(kernel_bench.oversized(bench.scenes[1], bench.intrin))
     for i, depth in enumerate(list(bench.frames) + [big]):
@@ -979,8 +1053,8 @@ def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
 @pytest.mark.cuda
 def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     """A FrameGraph's warm-up and capture go through the kernel wrappers
-    (K1 twice, K2 and union-find once each per frame program); its replays
-    go through none, so they move no launch count."""
+    (K1 twice, K2 and the grouping kernel once each per frame program); its
+    replays go through none, so they move no launch count."""
     from beats3d_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.FramePipeline(bench.model, bench.intrin)
