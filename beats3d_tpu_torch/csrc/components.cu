@@ -10,13 +10,13 @@
 // (label_components_plain, float32 scatter sums, argmax) -> grow_groups.
 //
 // Contract, for each image of a (b, H, W) int32 depth batch read at stride
-// (the image is depth[::f, ::f], h x w, n = h * w <= kMaxPixels):
+// (the image is depth[::f, ::f], h x w, n = h * w pixels):
 // * labels: a mask pixel (depth > 0) gets the minimum linear index of its
 //   4-connected component, a background pixel n;
 // * per root, the size and the sums of x and y, as exact integers: the
 //   plain version's float32 scatter sums are the same integers while they
 //   stay below 2^24 (the sum of x over an image is at most n (w - 1) / 2,
-//   so for every image up to kMaxPixels whose sides are at most 578);
+//   so for every image up to kBlockPixels whose sides are at most 578);
 // * selection: a component survives when size / n > pct (IEEE division,
 //   strictly greater); the right hand is the largest survivor whose
 //   centroid x (sum / size, IEEE) is below w / 2, the left the largest of
@@ -80,8 +80,10 @@
 // The per-root sums, the keys and the root list live in shared memory
 // beside the labels when they fit (16 n + 4,120 bytes: images up to 14,270
 // pixels, the live and batched frames' 6,360), else in a scratch the
-// wrapper allocates and the kernel initialises; an image of more than
-// kMaxPixels pixels is refused, never sent elsewhere.
+// wrapper allocates and the kernel initialises.  An image of more than
+// kBlockPixels pixels (one block's shared memory as int32 labels; the
+// mipmaps of depth_mm_level <= 1 at 848x480) takes the multi-block path at
+// the end of this file.
 
 #include <cstdint>
 
@@ -94,7 +96,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kDefaultSmem = 48 * 1024;
 // A block's shared memory on the H100 (227 KB), one int32 label a pixel.
 constexpr int kMaxSmem = 232448;
-constexpr int kMaxPixels = kMaxSmem / 4;
+constexpr int kBlockPixels = kMaxSmem / 4;
 // The aux block: two uint64 selection keys, the count of roots and a list
 // of up to kRootCap of them, then size, sum x and sum y per pixel slot.
 constexpr int kRootCap = 1024;
@@ -152,22 +154,31 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
 
 // (score, cx, cy) of slot j, as the plain version computes them from its
 // float32 sums: a slot that is no root has size 0 and centroid 0 / 1.
+// The sums are int32 (one block) or uint64 (the multi-block path), each
+// rounded to float32 once.
 struct Slot {
   float size, cx, cy;
 };
 
-__device__ __forceinline__ Slot slot_of(const int* sums, int n, int j,
+__device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float to_float(unsigned long long v) {
+  return __ull2float_rn(v);
+}
+
+template <class S>
+__device__ __forceinline__ Slot slot_of(const S* sums, int n, int j,
                                         bool root) {
-  const float size = root ? __int2float_rn(sums[j]) : 0.0f;
-  const float sx = root ? __int2float_rn(sums[n + j]) : 0.0f;
-  const float sy = root ? __int2float_rn(sums[2 * n + j]) : 0.0f;
+  const float size = root ? to_float(sums[j]) : 0.0f;
+  const float sx = root ? to_float(sums[n + j]) : 0.0f;
+  const float sy = root ? to_float(sums[2 * n + j]) : 0.0f;
   const float safe = root ? size : 1.0f;
   return Slot{size, __fdiv_rn(sx, safe), __fdiv_rn(sy, safe)};
 }
 
 // Root i's key into the right (kr) or left (kl) maximum when it survives:
 // its size's float bits high, its complemented index low.
-__device__ __forceinline__ void consider(const int* sums, int n, int i,
+template <class S>
+__device__ __forceinline__ void consider(const S* sums, int n, int i,
                                          float n_f, float p, float half_w,
                                          unsigned long long& kr,
                                          unsigned long long& kl) {
@@ -429,8 +440,9 @@ extern "C" long long b3d_hand_groups_scratch(int h, int w) {
 // (b, h, w) int32 when grown != nullptr.  pct: a float32 device scalar,
 // read by the kernel.  scratch: b * b3d_hand_groups_scratch(h, w) ints,
 // or nullptr when that is 0.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for an image of more than kMaxPixels
-// pixels (components.MAX_PIXELS) or a missing output or scratch.
+// launch, or cudaErrorInvalidValue for an image of more than kBlockPixels
+// pixels (components.BLOCK_PIXELS; b3d_hand_groups_mb takes those) or a
+// missing output or scratch.
 extern "C" int b3d_hand_groups(const int32_t* depth, long long sb,
                                long long sh, long long sw, int b, int h,
                                int w, const float* pct, int64_t* labels,
@@ -438,7 +450,7 @@ extern "C" int b3d_hand_groups(const int32_t* depth, long long sb,
                                int* scratch, void* stream) {
   const long long n = static_cast<long long>(h) * w;
   const bool groups_mode = labels == nullptr;
-  if (b < 0 || h < 0 || w < 0 || n > kMaxPixels ||
+  if (b < 0 || h < 0 || w < 0 || n > kBlockPixels ||
       (groups_mode && (groups == nullptr || g_info == nullptr ||
                        pct == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -461,4 +473,250 @@ extern "C" int b3d_hand_groups(const int32_t* depth, long long sb,
                       static_cast<int>(4 * n), s);
   }
   return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// The multi-block path (b3d_hand_groups_mb): images of more than
+// kBlockPixels pixels, whose labels do not fit one block's shared memory.
+// The same contract and outputs, bit for bit (the sums are uint64, so they
+// stay exact at any size; the plain version's float32 sums agree while
+// they stay below 2^24).  Five launches with no host read, each a grid of
+// 32 x 32 tiles (1024 threads, one pixel each; warp y a 32-pixel row
+// segment), the labels and the sums in a scratch of device memory:
+//  1. local: a tile's union-find in shared memory (the block kernel's
+//     compare-and-swap hooks and halving finds), written out as global
+//     indices (the tile's smallest index is its component part's smallest
+//     global index); the sums' slots and the image's keys are zeroed;
+//  2. merge: unions across the tiles' left and top borders, the same hooks
+//     and finds on the global labels (every link points at a smaller index,
+//     so each component ends as one tree rooted at its smallest index);
+//  3. compress: as the block kernel's pass 3, a run's first pixel finds the
+//     root and adds the run's count, sum of x and sum of y with three
+//     64-bit atomics; every mask pixel then holds its root (the labels-only
+//     mode writes them out and stops here);
+//  4. select: each root makes its keys (as in pass 4), a warp's maximum
+//     goes to the image's two keys with one 64-bit atomicMax each;
+//  5. write: groups, grown and g_info, as pass 5.
+// What bounds it: at 240x424 (level 1) 101,760 pixels are 0.4 MB of depth
+// in and 0.8 MB of groups and grown out, some 0.4 us at 3.35 TB/s; the
+// five launches' latency (a few us each, dependent) and the unions along
+// the tile borders set its time.
+
+namespace {
+
+constexpr int kTile = 32;
+
+// Scratch per image, in int32 units: the labels (n, rounded up to even),
+// then size, sum of x and sum of y (uint64, n each), then the two keys.
+__host__ __device__ constexpr long long mb_label_ints(long long n) {
+  return (n + 1) & ~1LL;
+}
+
+__host__ __device__ constexpr long long mb_scratch_ints(long long n) {
+  return mb_label_ints(n) + 6 * n + 4;
+}
+
+struct MbImage {
+  int* lab;
+  unsigned long long* sums;   // size, sum x, sum y: n each
+  unsigned long long* keys;   // right, left
+};
+
+__device__ __forceinline__ MbImage mb_image(int* scratch, int z, int n) {
+  int* lab = scratch + z * mb_scratch_ints(n);
+  unsigned long long* sums =
+      reinterpret_cast<unsigned long long*>(lab + mb_label_ints(n));
+  return MbImage{lab, sums, sums + 3 * static_cast<long long>(n)};
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hand_groups_mb_local(const int32_t* __restrict__ depth, long long sb,
+                         long long sh, long long sw, int h, int w,
+                         int* __restrict__ scratch, bool groups_mode) {
+  __shared__ int tl[kTile * kTile];
+  constexpr int kNone = kTile * kTile;
+  const int lx = threadIdx.x, ly = threadIdx.y;
+  const int x = blockIdx.x * kTile + lx, y = blockIdx.y * kTile + ly;
+  const int n = h * w;
+  const MbImage im = mb_image(scratch, blockIdx.z, n);
+  const int t = ly * kTile + lx;
+  const bool inside = x < w && y < h;
+  const bool m = inside && depth[blockIdx.z * sb + y * sh + x * sw] > 0;
+  tl[t] = m ? t : kNone;
+  __syncthreads();
+  volatile int* tv = tl;
+  if (m && lx > 0 && tv[t - 1] != kNone) unite(tl, tv, t, t - 1);
+  if (m && ly > 0 && tv[t - kTile] != kNone) unite(tl, tv, t, t - kTile);
+  __syncthreads();
+  if (inside) {
+    const int i = y * w + x;
+    int g = n;
+    if (m) {
+      const int r = find_root(tl, tv, t);
+      g = (blockIdx.y * kTile + r / kTile) * w + blockIdx.x * kTile + r % kTile;
+    }
+    im.lab[i] = g;
+    if (groups_mode) im.sums[i] = im.sums[n + i] = im.sums[2 * n + i] = 0;
+  }
+  if (groups_mode && t == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+    im.keys[0] = im.keys[1] = kNoGroup;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hand_groups_mb_merge(int h, int w, int* __restrict__ scratch) {
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y = blockIdx.y * kTile + threadIdx.y;
+  if (x >= w || y >= h || (threadIdx.x && threadIdx.y)) return;
+  const int n = h * w;
+  int* lab = mb_image(scratch, blockIdx.z, n).lab;
+  volatile int* lv = lab;
+  const int i = y * w + x;
+  if (lv[i] == n) return;
+  if (threadIdx.x == 0 && x > 0 && lv[i - 1] != n) unite(lab, lv, i, i - 1);
+  if (threadIdx.y == 0 && y > 0 && lv[i - w] != n) unite(lab, lv, i, i - w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hand_groups_mb_compress(int h, int w, int* __restrict__ scratch,
+                            int64_t* __restrict__ labels_out,
+                            bool groups_mode) {
+  const int lane = threadIdx.x;
+  const int x = blockIdx.x * kTile + lane;
+  const int y = blockIdx.y * kTile + threadIdx.y;
+  if (y >= h) return;                          // the whole warp
+  const int n = h * w;
+  const MbImage im = mb_image(scratch, blockIdx.z, n);
+  volatile int* lv = im.lab;
+  const int i = y * w + x;
+  const bool in = x < w && lv[i] != n;
+  const unsigned ball = __ballot_sync(kFull, in);
+  const int s = run_start(ball, lane);
+  int r = n;
+  if (in && s == lane) {
+    r = find_root(im.lab, lv, i);
+    if (groups_mode) {
+      const unsigned rest = ~ball & (kFull << lane);
+      const unsigned long long cnt = (rest ? __ffs(rest) - 1 : 32) - lane;
+      atomicAdd(im.sums + r, cnt);
+      atomicAdd(im.sums + n + r, cnt * x + cnt * (cnt - 1) / 2);
+      atomicAdd(im.sums + 2 * n + r, cnt * y);
+    }
+  }
+  r = __shfl_sync(kFull, r, s);
+  if (x >= w) return;
+  if (!in) r = n;
+  else im.lab[i] = r;
+  if (labels_out) labels_out[static_cast<long long>(blockIdx.z) * n + i] = r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hand_groups_mb_select(int h, int w, const float* __restrict__ pct,
+                          int* __restrict__ scratch) {
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y = blockIdx.y * kTile + threadIdx.y;
+  const int n = h * w;
+  const MbImage im = mb_image(scratch, blockIdx.z, n);
+  unsigned long long kr = kNoGroup, kl = kNoGroup;
+  if (x < w && y < h && im.lab[y * w + x] == y * w + x) {
+    consider(im.sums, n, y * w + x, __int2float_rn(n), *pct,
+             0.5f * __int2float_rn(w), kr, kl);
+  }
+  kr = warp_max(kr);
+  kl = warp_max(kl);
+  if (threadIdx.x == 0 && (kr != kNoGroup || kl != kNoGroup)) {
+    atomicMax(im.keys, kr);
+    atomicMax(im.keys + 1, kl);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hand_groups_mb_write(int h, int w, int* __restrict__ scratch,
+                         int32_t* __restrict__ groups_out,
+                         int32_t* __restrict__ grown_out,
+                         float* __restrict__ g_info) {
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y = blockIdx.y * kTile + threadIdx.y;
+  const int n = h * w;
+  const MbImage im = mb_image(scratch, blockIdx.z, n);
+  const int* labc = im.lab;
+  const unsigned long long r_key = im.keys[0], l_key = im.keys[1];
+  const float rs = __uint_as_float(static_cast<unsigned>(r_key >> 32));
+  const float ls = __uint_as_float(static_cast<unsigned>(l_key >> 32));
+  const int r_root = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(r_key));
+  const int l_root = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(l_key));
+  const int r_pick = rs > 0.0f ? r_root : -1;
+  const int l_pick = ls > 0.0f ? l_root : -1;
+  const long long base = static_cast<long long>(blockIdx.z) * n;
+  if (x < w && y < h) {
+    const int i = y * w + x;
+    const int g = group_of(labc[i], r_pick, l_pick);
+    groups_out[base + i] = g;
+    if (grown_out) {
+      const int gl = x > 0 ? group_of(labc[i - 1], r_pick, l_pick) : 0;
+      const int gr = x + 1 < w ? group_of(labc[i + 1], r_pick, l_pick) : 0;
+      const int gu = y > 0 ? group_of(labc[i - w], r_pick, l_pick) : 0;
+      const int gd = y + 1 < h ? group_of(labc[i + w], r_pick, l_pick) : 0;
+      grown_out[base + i] = g ? g : gl ? gl : gr ? gr : gu ? gu : gd;
+    }
+  }
+  const int side = threadIdx.x;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.y == 0 && side < 2) {
+    const int j = side ? l_root : r_root;
+    const Slot sl = slot_of(im.sums, n, j, labc[j] == j);
+    float* o = g_info + blockIdx.z * 6 + side * 3;
+    o[0] = side ? ls : rs;
+    o[1] = sl.cx;
+    o[2] = sl.cy;
+  }
+}
+
+}  // namespace
+
+// int32 scratch per image that b3d_hand_groups_mb needs (the labels, the
+// uint64 sums and keys); even, so the sums stay 8-byte aligned.
+extern "C" long long b3d_hand_groups_mb_scratch(int h, int w) {
+  return mb_scratch_ints(static_cast<long long>(h) * w);
+}
+
+// The multi-block path, for any image of fewer than 2^31 pixels and at
+// most 65535 * 32 rows: arguments and modes as b3d_hand_groups; scratch:
+// b * b3d_hand_groups_mb_scratch(h, w) ints in every mode.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int b3d_hand_groups_mb(const int32_t* depth, long long sb,
+                                  long long sh, long long sw, int b, int h,
+                                  int w, const float* pct, int64_t* labels,
+                                  int32_t* groups, int32_t* grown,
+                                  float* g_info, int* scratch, void* stream) {
+  const long long n = static_cast<long long>(h) * w;
+  const bool groups_mode = labels == nullptr;
+  if (b < 0 || h < 0 || w < 0 || n >= (1LL << 31) ||
+      (h + kTile - 1) / kTile > 65535 || scratch == nullptr ||
+      (groups_mode && (groups == nullptr || g_info == nullptr ||
+                       pct == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long stride = mb_scratch_ints(n);
+  const dim3 block(kTile, kTile);
+  for (int z0 = 0; z0 < b; z0 += 65535) {
+    const int nz = b - z0 < 65535 ? b - z0 : 65535;
+    const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, nz);
+    int* sc = scratch + z0 * stride;
+    const long long o = z0 * n;
+    hand_groups_mb_local<<<grid, block, 0, s>>>(depth + z0 * sb, sb, sh, sw,
+                                                 h, w, sc, groups_mode);
+    hand_groups_mb_merge<<<grid, block, 0, s>>>(h, w, sc);
+    hand_groups_mb_compress<<<grid, block, 0, s>>>(
+        h, w, sc, groups_mode ? nullptr : labels + o, groups_mode);
+    if (groups_mode) {
+      hand_groups_mb_select<<<grid, block, 0, s>>>(h, w, pct, sc);
+      hand_groups_mb_write<<<grid, block, 0, s>>>(
+          h, w, sc, groups + o, grown ? grown + o : nullptr,
+          g_info + 6LL * z0);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
 }

@@ -8,8 +8,9 @@ them, and the parent-against-change timing.
 DIR holds earlier versions of some of ``forest_eval.cu`` (with
 ``forest_walk.cuh``), ``train_features.cu`` and ``components.cu`` (for
 example ``git show REV:beats3d_tpu_torch/csrc/FILE``); an earlier K1 entry
-takes a ``lanes`` argument, its B1 entry may take one or not, as its source
-says.  The script builds what DIR holds with the port's nvcc flags into
+takes a ``lanes`` argument, its B1 entry may take one or not, and its
+entries a spill buffer (with K1's descriptors also in device memory) or
+not, as its source says.  The script builds what DIR holds with the port's nvcc flags into
 ``build/``, checks that the earlier and the current kernels give the plain
 versions' outputs, and times them in turns (earlier, current, current,
 earlier) from CUDA graphs, for each source DIR holds:
@@ -21,8 +22,9 @@ earlier) from CUDA graphs, for each source DIR holds:
 * train_features.cu: B4 (``b4_turns``);
 * forest_eval.cu: B1 (``b1_turns``, then each lane grouping,
   ``b1_variant``, and the dense forest's repack into K1's tables,
-  ``b1_repack``) and K1 (``k1_turns``, then each lane grouping,
-  ``k1_sweep``).
+  ``b1_repack``), B1's pdf-sum mode on the golden frames, its 2-tree shards
+  and r=2 at scale 0.5 (``pdf_sum_turns``) and K1 (``k1_turns``, then each
+  lane grouping, ``k1_sweep``).
 
 The B4 and B1 designs that measured slower (pixel lanes with the proposals
 split over warps, 4 or 8 pixels per warp step, a reciprocal fast path for
@@ -187,6 +189,70 @@ def grouping_depth(inp: BenchInputs):
     return pl._band_gauss(inp.frames, inp.plane, inp.pipe, inp.pipe.cfg)
 
 
+def exact_centroids(small, groups):
+    """The centroids (B, 2, 2) float32 (cx, cy) of the components that
+    ``groups`` (B, h, w) marks right (1) and left (2) on the shrunk depth
+    ``small`` (B, h, w), from their integer sums rounded to float32 once and
+    an IEEE quotient: the grouping kernels' arithmetic, exact at any size.
+    A side with no group takes the component rooted at pixel 0, or (0, 0)
+    when pixel 0 is background.  Also returns the largest sum of x or y of
+    those components (the plain version's float32 sums round past 2**24:
+    ROADMAP C-w15).  On the CPU."""
+    small = small.cpu()
+    groups = groups.cpu()
+    labels = components.label_components_plain(small > 0)
+    b, h, w = small.shape
+    out = torch.zeros((b, 2, 2), dtype=torch.float32)
+    biggest = 0
+    for i in range(b):
+        for k in (0, 1):
+            sel = groups[i] == k + 1
+            if sel.any():
+                root = labels[i][sel][0]
+            elif small[i, 0, 0] > 0:
+                root = labels[i, 0, 0]
+            else:
+                continue
+            ys, xs = torch.nonzero(labels[i] == root, as_tuple=True)
+            sums = torch.stack([xs.sum(), ys.sum()])
+            biggest = max(biggest, int(sums.max()))
+            out[i, k] = sums.to(torch.float32) / torch.tensor(
+                float(xs.numel()), dtype=torch.float32)
+    return out, biggest
+
+
+def grouping_compare(got, want, small, groups=None):
+    """The grouping kernel's outputs ``got`` against the plain version's
+    ``want`` (tuples of the same order; g_info the float one), on the shrunk
+    depth ``small``: every integer output and g_info's sizes must be equal;
+    the centroids bit-equal to the plain version's while the sums stay
+    below 2**24, and past that (C-w15) bit-equal to
+    :func:`exact_centroids`, the plain version's distance from them
+    reported.  ``groups``: the groups the centroids belong to (default the
+    first int32 output).  Returns a dict of counts (``mismatches`` must be
+    0)."""
+    res = dict(mismatches=0, max_sum=None, plain_centroid_ulps=0)
+    for a, b in zip(got, want):
+        if not a.is_floating_point():
+            res["mismatches"] += int((a != b).sum())
+            continue
+        a, b = a.reshape(-1, 2, 3).cpu(), b.reshape(-1, 2, 3).cpu()
+        res["mismatches"] += int((a[..., 0].view(torch.int32)
+                                  != b[..., 0].view(torch.int32)).sum())
+        g = groups if groups is not None else next(
+            t for t in got if t.dtype == torch.int32)
+        exact, biggest = exact_centroids(small.reshape(-1, *small.shape[-2:]),
+                                         g.reshape(-1, *g.shape[-2:]))
+        res["max_sum"] = biggest
+        ref = b[..., 1:] if biggest < 2 ** 24 else exact
+        res["mismatches"] += int((a[..., 1:].view(torch.int32)
+                                  != ref.view(torch.int32)).sum())
+        res["plain_centroid_ulps"] = int(
+            (b[..., 1:].view(torch.int32).long()
+             - exact.view(torch.int32).long()).abs().max())
+    return res
+
+
 def hand_frames(intrin, seeds):
     """(depth, labels) uint16 stacks of single-hand 848x480 training frames;
     the labels come from the rendered colours (part_labels)."""
@@ -257,6 +323,63 @@ def b1_cases(model, dev):
                      dict(labels_reduce=1, write_all_eligible=False)),
         "two_trees": (fine[:2].contiguous(), dict(labels_reduce=1)),
     }
+
+
+def random_forest(rng, trees, levels, classes, leaf_prob=0.05,
+                  off_mag=400.0):
+    """A dense (trees, 2**levels - 1, 7 + 2 classes) float32 forest from
+    ``rng`` (numpy): offsets within +-off_mag, thresholds within +-300, a
+    side a leaf with probability ``leaf_prob`` (always on the last level),
+    leaf pdfs uniform with class 0 at 0."""
+    nodes = 2 ** levels - 1
+    flat = np.zeros((trees, nodes, 7 + 2 * classes), np.float32)
+    flat[..., :4] = rng.uniform(-off_mag, off_mag, (trees, nodes, 4))
+    flat[..., 4] = rng.uniform(-300.0, 300.0, (trees, nodes))
+    leaf = rng.random((trees, nodes, 2)) < leaf_prob
+    leaf[:, 2 ** (levels - 1) - 1:] = True
+    flat[..., 5:7] = np.where(leaf, 0.0, -1.0)
+    pdf = rng.random((trees, nodes, 2, classes)).astype(np.float32)
+    pdf[..., 0] = 0.0
+    flat[..., 7:] = pdf.reshape(trees, nodes, 2 * classes)
+    return flat
+
+
+WIDE_FINAL_CLASSES = 7          # the composite's classes, as the flagship's
+
+
+def wide_layered(rng, layers, trees, classes, cond_rows, levels):
+    """A layered model past the flagship's widths, from ``rng``: ``layers``
+    forests of ``trees`` trees, ``levels`` levels and ``classes`` classes,
+    layer i > 0 filtered on layer i - 1's class 1, and a conditions table of
+    ``cond_rows`` rows (>= 1 + (layers - 1) * classes) whose layers past
+    the first sit at its end, so the composite reads its last rows: class 1
+    of layer i < layers - 1 (weighted up in its leaves) moves on to layer
+    i + 1, every other class
+    emits one of 7 final classes.  Returns (layers as (flat, filter_model,
+    filter_class), conditions (cond_rows, 2) int32, label colours (7, 4)
+    uint8), the numpy parameters of models.layered.from_numpy."""
+    offsets = [0] + [cond_rows - (layers - i) * classes
+                     for i in range(1, layers)]
+    if layers > 1 and offsets[1] < classes:
+        raise ValueError(f"{cond_rows} condition rows do not hold {layers} "
+                         f"layers of {classes} classes")
+    cond = np.zeros((cond_rows, 2), np.int32)
+    cond[:, 1] = 1 + np.arange(cond_rows) % WIDE_FINAL_CLASSES
+    for i, o in enumerate(offsets):
+        cond[o:o + classes, 1] = 1 + (i + np.arange(classes)) % WIDE_FINAL_CLASSES
+        if i + 1 < layers:
+            cond[o] = (1, offsets[i + 1])
+    specs = []
+    for i in range(layers):
+        flat = random_forest(rng, trees, levels, classes)
+        # class 1's leaf weights raised so that about half the pixels move
+        # on to the next layer
+        flat[..., 8::classes] *= 1.25 if i + 1 < layers else 1.0
+        specs.append((flat, None if i == 0 else i - 1, None if i == 0 else 1))
+    colors = np.stack([(37 * (c + 1)) % 256 * np.ones(4, np.uint8)
+                       for c in range(WIDE_FINAL_CLASSES)]).astype(np.uint8)
+    colors[:, 3] = 255
+    return specs, cond, colors
 
 
 def k1_work(model, depth, r=2, scale=1.0):
@@ -355,23 +478,37 @@ def k2_work(depth):
 PARENT_SOURCES = ("forest_eval.cu", "train_features.cu", "components.cu")
 
 
-def build_parent(src_dir):
+@dataclasses.dataclass
+class ParentLib:
+    """An earlier version's kernels: the loaded library, nvcc's log, the
+    sources built, whether its B1 entry takes ``lanes``, and whether its
+    forest entries take a spill buffer (with K1's descriptors in device
+    memory: the entries of sources from this tree on)."""
+    lib: ctypes.CDLL
+    log: str
+    names: set
+    b1_lanes: bool
+    spill: bool
+
+
+def build_parent(src_dir) -> ParentLib:
     """Build the earlier kernels of ``src_dir`` (any of forest_eval.cu with
     its forest_walk.cuh, train_features.cu and components.cu) into
-    build/beats3d_tpu_torch_parent/ with the port's flags; return the
-    loaded library, nvcc's log, the names of the sources built, and
-    whether its B1 entry takes ``lanes``."""
+    build/beats3d_tpu_torch_parent/ with the port's flags and bind the
+    entries as their source declares them."""
     srcs = [os.path.join(src_dir, f) for f in PARENT_SOURCES
             if os.path.exists(os.path.join(src_dir, f))]
     if not srcs:
         raise SystemExit(f"kernel_bench: {src_dir} holds none of "
                          f"{PARENT_SOURCES}")
     names = {os.path.basename(f) for f in srcs}
-    b1_lanes = False
+    b1_lanes = spill = False
     if "forest_eval.cu" in names:
         with open(srcs[0]) as fh:
-            entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", fh.read())
+            text = fh.read()
+        entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", text)
         b1_lanes = entry is not None and "int lanes" in entry.group(1)
+        spill = "b3d_forest_spill" in text
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
     hashed = srcs + [f for f in (os.path.join(src_dir, "forest_walk.cuh"),)
                      if os.path.exists(f)]
@@ -388,21 +525,26 @@ def build_parent(src_dir):
         raise RuntimeError(f"nvcc failed on the earlier kernels:\n{proc.stderr}")
     lib = ctypes.CDLL(path)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if "forest_eval.cu" in names:
+    descs = ctypes.POINTER(cuda_lib.LayerDesc)
+    if "forest_eval.cu" in names and spill:
+        cuda_lib.bind_forest(lib)
+    elif "forest_eval.cu" in names:
         lib.b3d_evaluate_layered.argtypes = [
-            vp, vp, i, i, i, i, f, ctypes.POINTER(cuda_lib.LayerDesc), i, vp,
-            i, i, vp]
+            vp, vp, i, i, i, i, f, descs, i, vp, i, i, vp]
         lib.b3d_evaluate_layered.restype = i
         lib.b3d_evaluate_forest.argtypes = [
             vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, *[i] * b1_lanes, vp]
         lib.b3d_evaluate_forest.restype = i
+        lib.b3d_forest_pdf_sum.argtypes = [
+            vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp]
+        lib.b3d_forest_pdf_sum.restype = i
     if "train_features.cu" in names:
         lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
         lib.b3d_train_feature_bits.restype = i
     if "components.cu" in names:
         lib.b3d_label_components.argtypes = [vp, vp, i, i, i, vp]
         lib.b3d_label_components.restype = i
-    return lib, proc.stdout + proc.stderr, names, b1_lanes
+    return ParentLib(lib, proc.stdout + proc.stderr, names, b1_lanes, spill)
 
 
 def _stream():
@@ -414,22 +556,48 @@ def _check(st, what):
         raise RuntimeError(f"{what}: CUDA error {st}")
 
 
-def parent_k1(lib, model, descs):
+def current_lib():
+    """The port's own library as a :class:`ParentLib` (its B1 entry takes
+    ``lanes``, its forest entries a spill buffer)."""
+    return ParentLib(cuda_lib.library(), "", {"forest_eval.cu"}, True, True)
+
+
+def _spill_arg(parent, ints, device):
+    """The spill argument of an entry from ``parent``: a buffer of ``ints``
+    int2 (or none) where the entry takes one, else nothing."""
+    if not parent.spill:
+        return ()
+    return (None if not ints else torch.empty(
+        2 * ints, dtype=torch.int32, device=device).data_ptr(),)
+
+
+def parent_k1(parent, model, descs):
+    lib = parent.lib
+
     def run(depth, r=2, scale=1.0):
         n, h, w = depth.shape
         out = torch.empty((n, h // r, w // r), dtype=torch.int32,
                           device=depth.device)
+        c = model.conditions
+        if parent.spill:
+            args = (descs.host, descs.dev.data_ptr(), len(descs), c.data_ptr(),
+                    c.shape[0], 0, *_spill_arg(parent, lib.b3d_layered_spill(
+                        n, h, w, r, descs.host, len(descs), 0), depth.device))
+        else:
+            args = (descs.host, len(descs), c.data_ptr(), c.shape[0], 0)
         _check(lib.b3d_evaluate_layered(
-            depth.data_ptr(), out.data_ptr(), n, h, w, r, scale, descs,
-            len(descs), model.conditions.data_ptr(), model.conditions.shape[0],
-            0, _stream()), "earlier K1")
+            depth.data_ptr(), out.data_ptr(), n, h, w, r, scale, *args,
+            _stream()), "earlier K1")
         return out
     return run
 
 
-def forest_runner(lib, *, lanes=0):
-    """B1 from ``lib`` with a lane grouping (0: the kernel's choice; None:
-    an earlier entry that takes none)."""
+def forest_runner(parent, *, lanes=0):
+    """B1 from ``parent`` (a :class:`ParentLib`, or the current library as
+    one) with a lane grouping (0: the kernel's choice; None: an earlier
+    entry that takes none)."""
+    lib = parent.lib
+
     def run(depth, flat, labels_reduce=1, filter_images=None, filter_class=-1,
             scale_factor=1.0, write_all_eligible=True):
         n, h, w = depth.shape
@@ -438,13 +606,38 @@ def forest_runner(lib, *, lanes=0):
         out = torch.empty((n, h // r, w // r), dtype=torch.int32,
                           device=depth.device)
         extra = () if lanes is None else (lanes,)
+        spill = _spill_arg(parent, parent.spill and lib.b3d_forest_spill(
+            n, h, w, r, t, c, 0, lanes or 0), depth.device)
         _check(lib.b3d_evaluate_forest(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
             flat.data_ptr(), t, lv, c,
             None if filter_images is None else filter_images.data_ptr(),
-            int(filter_class), int(write_all_eligible), *extra, _stream()),
-            "B1")
+            int(filter_class), int(write_all_eligible), *extra, *spill,
+            _stream()), "B1")
         return out
+    return run
+
+
+def pdf_sum_runner(parent):
+    """B1's pdf-sum mode from ``parent``'s entry."""
+    lib = parent.lib
+
+    def run(depth, flat, labels_reduce=1, scale_factor=1.0):
+        n, h, w = depth.shape
+        r = labels_reduce
+        t, lv, c = forest_dims(flat.shape)
+        shape = (n, h // r, w // r)
+        pdf = torch.empty(shape + (c,), dtype=torch.float32,
+                          device=depth.device)
+        elig = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+        done = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+        spill = _spill_arg(parent, parent.spill and lib.b3d_forest_spill(
+            n, h, w, r, t, c, 1, 0), depth.device)
+        _check(lib.b3d_forest_pdf_sum(
+            depth.data_ptr(), pdf.data_ptr(), elig.data_ptr(), done.data_ptr(),
+            n, h, w, r, float(scale_factor), flat.data_ptr(), t, lv, c,
+            *spill, _stream()), "B1 pdf-sum")
+        return pdf, elig.view(torch.bool), done.view(torch.bool)
     return run
 
 
@@ -510,8 +703,8 @@ def say(what, **kw):
     print(json.dumps({"bench": what, **kw}), flush=True)
 
 
-def bench_b4(lib, intrin, dev, smi):
-    old = bits_runner(lib)
+def bench_b4(parent, intrin, dev, smi):
+    old = bits_runner(parent.lib)
     for name, (d, props, act) in b4_cases(intrin, dev).items():
         want = train_features.train_feature_bits_plain(d, props, act)
         new = train_features_cuda.train_feature_bits_cuda
@@ -526,8 +719,8 @@ def bench_b4(lib, intrin, dev, smi):
             **t)
 
 
-def bench_b1(lib, b1_lanes, new_lib, model, dev, smi):
-    old = forest_runner(lib, lanes=0 if b1_lanes else None)
+def bench_b1(parent, current, model, dev, smi):
+    old = forest_runner(parent, lanes=0 if parent.b1_lanes else None)
     new = forest_eval_cuda.evaluate_forest_cuda
     depth, cases = b1_cases(model, dev)
     for name, (flat, kw) in cases.items():
@@ -542,7 +735,7 @@ def bench_b1(lib, b1_lanes, new_lib, model, dev, smi):
             **t)
         rows = []
         for lanes in (1, 2, 4):
-            run = forest_runner(new_lib, lanes=lanes)
+            run = forest_runner(current, lanes=lanes)
             rows.append(dict(
                 lanes=lanes,
                 mismatches=int((run(depth, flat, **kw) != want).sum()),
@@ -554,12 +747,12 @@ def bench_b1(lib, b1_lanes, new_lib, model, dev, smi):
         ms=graph_ms(lambda: kernel_tables(one)))
 
 
-def bench_grouping(lib, inp, smi):
+def bench_grouping(parent, inp, smi):
     """The earlier grouping stage (its union-find launch and the tensor
     operations around it) against the fused kernel on the live frame and
     the batch of 16: both equal to the plain composition, their device
     operations per call, and their times in turns from CUDA graphs."""
-    old = parent_stage(lib)
+    old = parent_stage(parent.lib)
     new = components.hand_groups_grown
     depth1 = grouping_depth(inp)
     level, pct = inp.pipe.cfg.depth_mm_level, inp.pipe.gms
@@ -582,6 +775,52 @@ def bench_grouping(lib, inp, smi):
             share_new=bms / t["new_mean_ms"], **t)
 
 
+def pdf_sum_cases(model, dev):
+    """B1's pdf-sum mode on the golden frames: name -> (dense forest,
+    kwargs): the fine layer (T=4, D=16, C=7) at r=1, its two 2-tree shards
+    (the tree-sharded eval's), and r=2 at scale 0.5."""
+    depth, _ = b1_cases(model, dev)
+    fine = model.layers[1].flat
+    return depth, {
+        "golden_r1": (fine, dict(labels_reduce=1)),
+        "shard_0": (fine[:2].contiguous(), dict(labels_reduce=1)),
+        "shard_1": (fine[2:].contiguous(), dict(labels_reduce=1)),
+        "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5)),
+    }
+
+
+def pdf_sum_differ(got, want):
+    """Where B1's pdf-sum outputs (pdf, eligible, all_done) differ from the
+    plain version's: eligibility; sums (bits) and all_done on eligible
+    pixels; sums or all_done off 0 and True on ineligible ones."""
+    pdf, elig, done = (t.cpu().numpy() for t in got)
+    w_pdf, w_elig, w_done = (t.cpu().numpy() for t in want)
+    e = elig
+    return dict(
+        eligible=int((elig != w_elig).sum()),
+        sums=int((pdf.view(np.uint32) != w_pdf.view(np.uint32))[e].sum()),
+        all_done=int((done != w_done)[e].sum()),
+        ineligible_nonzero=int(pdf[~e].any(-1).sum() + (~done[~e]).sum()))
+
+
+def bench_pdf_sum(parent, model, dev, smi):
+    """B1's pdf-sum mode, the earlier entry against this one, in turns."""
+    old = pdf_sum_runner(parent)
+    new = forest_eval_cuda.forest_pdf_sum_cuda
+    depth, cases = pdf_sum_cases(model, dev)
+    for name, (flat, kw) in cases.items():
+        want = forest_eval.forest_pdf_sum(
+            depth, PackedForest.from_flat(flat).tables(), **kw)
+        differ = [pdf_sum_differ(fn(depth, flat, **kw), want)
+                  for fn in (old, new)]
+        bms, by = bound(*pdf_sum_work(depth, flat, **kw))
+        t = turns(lambda: old(depth, flat, **kw), lambda: new(depth, flat, **kw))
+        say("pdf_sum_turns", card=smi, case=name, trees=int(flat.shape[0]),
+            differ_old_new_vs_plain=differ, bound_ms=bms, bound_by=by,
+            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
+            **t)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
@@ -596,23 +835,24 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     say("device", card=smi)
-    lib, log, names, b1_lanes = build_parent(args.parent)
-    new_lib = cuda_lib.library()
-    say("build", parent_sources=sorted(names),
-        parent_ptxas=cuda_lib.ptxas_summary(log),
+    parent = build_parent(args.parent)
+    current = current_lib()
+    say("build", parent_sources=sorted(parent.names),
+        parent_ptxas=cuda_lib.ptxas_summary(parent.log),
         ptxas=cuda_lib.ptxas_summary(cuda_lib.LIBRARY.build.log))
     inp = bench_inputs(dev)
-    if "components.cu" in names:
-        bench_grouping(lib, inp, smi)
-    if "train_features.cu" in names:
-        bench_b4(lib, inp.intrin, dev, smi)
-    if "forest_eval.cu" not in names:
+    if "components.cu" in parent.names:
+        bench_grouping(parent, inp, smi)
+    if "train_features.cu" in parent.names:
+        bench_b4(parent, inp.intrin, dev, smi)
+    if "forest_eval.cu" not in parent.names:
         return 0
     m = inp.model
-    bench_b1(lib, b1_lanes, new_lib, m, dev, smi)
+    bench_b1(parent, current, m, dev, smi)
+    bench_pdf_sum(parent, m, dev, smi)
     K1 = forest_eval_cuda.evaluate_layered_cuda
     descs = forest_eval_cuda.layer_descs(m.layers, dev)
-    old_k1 = parent_k1(lib, m, descs)
+    old_k1 = parent_k1(parent, m, descs)
     for name, depth in k1_shapes(inp).items():
         want = forest_eval_cuda.evaluate_layered_plain(
             depth, m.layers, m.conditions, labels_reduce=2)

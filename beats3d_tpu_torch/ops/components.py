@@ -9,6 +9,12 @@ CUDA tensors, one block per image, with no host read:
 * :func:`make_hand_groups`: the same without the grow;
 * :func:`label_components`: the labels only.
 
+An image of more than ``BLOCK_PIXELS`` pixels (one block's shared memory:
+the mipmaps of ``depth_mm_level`` <= 1 at 848x480) takes the multi-block
+path instead, :func:`hand_groups_multiblock` (five launches over 32x32
+tiles, the labels and uint64 sums in device memory, no host read), in the
+same three modes and with the same outputs.
+
 For CPU tensors each runs its plain version, the composition the JAX
 package computes: :func:`label_components_plain`, union-find to a fixpoint
 in rounds of 8 neighbour-min propagations (shifts only) and two
@@ -25,10 +31,11 @@ Selection: components of size <= pct_thresh * num_pixels are discarded;
 among the rest, the largest with centroid x < W/2 becomes group 1 ("right
 hand": the image is mirrored) and the largest with centroid x >= W/2 group
 2.  Ties go to the smaller root, the first maximum of ``argmax``.  The
-kernel sums each root's size, x and y as integers; the plain version's
+kernels sum each root's size, x and y as integers; the plain version's
 float32 ``scatter_add`` gives the same values while they stay below 2**24,
-which holds for every image of up to ``MAX_PIXELS`` pixels whose sides are
-at most 578 (an image's sum of x is at most n (W - 1) / 2).
+which holds for every image of up to ``BLOCK_PIXELS`` pixels whose sides
+are at most 578 (an image's sum of x is at most n (W - 1) / 2).  Past that
+the kernels' sums stay exact and the plain version's round (ROADMAP C-w15).
 
 Functions take a leading batch dimension or none.
 """
@@ -40,9 +47,13 @@ import torch.nn.functional as F
 
 from . import cuda_lib, points
 
-# One block's shared memory on the H100 (227 KB) holds the kernel's int32
-# labels of one image.
-MAX_PIXELS = 232448 // 4
+# One block's shared memory on the H100 (227 KB) holds the single-block
+# kernel's int32 labels of one image; a larger image takes the multi-block
+# path.
+BLOCK_PIXELS = 232448 // 4
+# The multi-block path indexes pixels in 32 bits and tiles rows in a grid
+# of at most 65,535 tiles of 32.
+MULTIBLOCK_ROWS = 65535 * 32
 
 
 def label_components_plain(mask):
@@ -159,28 +170,30 @@ def hand_groups_grown_plain(depth1, level: int, pct_thresh):
 
 
 def _hand_groups_cuda(depth, level, pct_thresh, *, labels=False, grown=False):
-    """One launch of the hand_groups kernel on depth (..., H, W), a CUDA
-    tensor, at mipmap ``level``.  Returns the (B, h, w) int64 labels, or
-    (groups, g_info, grown or None) with groups and grown (B, h, w) int32
-    and g_info (B, 2, 3) float32."""
+    """One call of the grouping kernel on depth (..., H, W), a CUDA tensor,
+    at mipmap ``level``: the single-block kernel's one launch, or for an
+    image of more than ``BLOCK_PIXELS`` pixels the multi-block path
+    (:func:`hand_groups_multiblock`).  Returns the (B, h, w) int64 labels,
+    or (groups, g_info, grown or None) with groups and grown (B, h, w)
+    int32 and g_info (B, 2, 3) float32, and whether the multi-block path
+    ran."""
     hh, ww = depth.shape[-2:]
     f = 1 << level
     h, w = -(-hh // f), -(-ww // f)
-    if h * w > MAX_PIXELS:
-        raise ValueError(
-            f"hand_groups: a {h}x{w} image has {h * w} pixels; the kernel "
-            f"holds at most {MAX_PIXELS} (one block's 227 KB of shared "
-            "memory as int32 labels)")
     if h * w == 0 and not labels:
         raise ValueError(f"hand_groups: a {h}x{w} image has no pixels")
+    multi = h * w > BLOCK_PIXELS
+    if multi and (h * w >= 2 ** 31 or h > MULTIBLOCK_ROWS):
+        raise ValueError(
+            f"hand_groups: a {h}x{w} image; the multi-block path takes fewer "
+            f"than 2**31 pixels and at most {MULTIBLOCK_ROWS} rows")
     dev = depth.device
     d = depth.reshape(-1, hh, ww).to(torch.int32)
     b = d.shape[0]
     sb, sh, sw = d.stride()
-    lib = cuda_lib.library()
     if labels:
-        out = torch.empty((b, h, w), dtype=torch.int64, device=dev)
-        pct = scratch = groups = grown_t = g_info = None
+        outs = (None, torch.empty((b, h, w), dtype=torch.int64, device=dev),
+                None, None, None)
     else:
         pct = (pct_thresh if torch.is_tensor(pct_thresh) else torch.full(
             (), float(pct_thresh), dtype=torch.float32, device=dev))
@@ -188,25 +201,48 @@ def _hand_groups_cuda(depth, level, pct_thresh, *, labels=False, grown=False):
         if pct.numel() != 1:
             raise ValueError(f"hand_groups: pct_thresh has {pct.numel()} "
                              "values, want one")
-        ints = lib.b3d_hand_groups_scratch(h, w)
-        scratch = (torch.empty(b * ints, dtype=torch.int32, device=dev)
-                   if ints else None)
-        groups = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-        grown_t = (torch.empty((b, h, w), dtype=torch.int32, device=dev)
-                   if grown else None)
-        g_info = torch.empty((b, 2, 3), dtype=torch.float32, device=dev)
-        out = None
+        outs = (pct, None,
+                torch.empty((b, h, w), dtype=torch.int32, device=dev),
+                torch.empty((b, h, w), dtype=torch.int32, device=dev)
+                if grown else None,
+                torch.empty((b, 2, 3), dtype=torch.float32, device=dev))
+    args = (d, (sb, sh * f, sw * f), h, w, outs)
+    if multi:
+        hand_groups_multiblock(*args)
+    else:
+        lib = cuda_lib.library()
+        _launch(lib.b3d_hand_groups,
+                0 if labels else lib.b3d_hand_groups_scratch(h, w), *args)
+    _, out, groups, grown_t, g_info = outs
+    return (out if labels else (groups, g_info, grown_t)), multi
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
+def _launch(entry, ints, d, strides, h, w, outs):
+    """One call of a grouping entry on the (B, H, W) int32 depth ``d`` read
+    at ``strides`` as h x w images, with ``ints`` int32 of scratch per image
+    and ``outs`` (pct, labels, groups, grown, g_info), each a CUDA tensor or
+    None."""
+    b = d.shape[0]
+    scratch = (torch.empty(b * ints, dtype=torch.int32, device=d.device)
+               if ints else None)
+    ptrs = [None if t is None else t.data_ptr() for t in (*outs, scratch)]
+    with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.b3d_hand_groups(
-            d.data_ptr(), sb, sh * f, sw * f, b, h, w, ptr(pct), ptr(out),
-            ptr(groups), ptr(grown_t), ptr(g_info), ptr(scratch), stream)
+        status = entry(d.data_ptr(), *strides, b, h, w, *ptrs, stream)
     cuda_lib.check(status, "hand_groups")
-    return out if labels else (groups, g_info, grown_t)
+
+
+def hand_groups_multiblock(d, strides, h, w, outs):
+    """The multi-block path (csrc/components.cu, b3d_hand_groups_mb): five
+    launches over 32x32 tiles, three in the labels-only mode, with the
+    labels and uint64 sums in a scratch of device memory; arguments as
+    :func:`_launch`'s.  :func:`label_components`, :func:`make_hand_groups`
+    and :func:`hand_groups_grown` send an image of more than
+    ``BLOCK_PIXELS`` pixels here; its ``launches`` count its calls."""
+    lib = cuda_lib.library()
+    _launch(lib.b3d_hand_groups_mb, lib.b3d_hand_groups_mb_scratch(h, w), d,
+            strides, h, w, outs)
+    hand_groups_multiblock.launches += 1
 
 
 def label_components(mask):
@@ -214,13 +250,13 @@ def label_components(mask):
     :func:`label_components_plain` returns them: the kernel's labels-only
     mode for a CUDA tensor, the plain version for a CPU tensor.
 
-    On CUDA: an image of more than ``MAX_PIXELS`` pixels raises ValueError;
-    returns int64.
+    On CUDA: returns int64; an image of more than ``BLOCK_PIXELS`` pixels
+    takes the multi-block path.
     """
     if mask.device.type != "cuda":
         return label_components_plain(mask)
-    out = _hand_groups_cuda(mask, 0, None, labels=True)
-    label_components.launches += 1
+    out, multi = _hand_groups_cuda(mask, 0, None, labels=True)
+    label_components.launches += not multi
     return out.reshape(mask.shape)
 
 
@@ -241,8 +277,8 @@ def make_hand_groups(depth_small, pct_thresh):
     if depth_small.device.type != "cuda":
         return make_hand_groups_plain(depth_small, pct_thresh)
     lead = depth_small.shape[:-2]
-    groups, g_info, _ = _hand_groups_cuda(depth_small, 0, pct_thresh)
-    make_hand_groups.launches += 1
+    (groups, g_info, _), multi = _hand_groups_cuda(depth_small, 0, pct_thresh)
+    make_hand_groups.launches += not multi
     return (groups.reshape(depth_small.shape).to(depth_small.dtype),
             g_info.reshape(*lead, 2, 3))
 
@@ -261,15 +297,17 @@ def hand_groups_grown(depth1, level: int, pct_thresh):
     if depth1.device.type != "cuda":
         return hand_groups_grown_plain(depth1, level, pct_thresh)
     lead = depth1.shape[:-2]
-    groups, g_info, grown = _hand_groups_cuda(depth1, level, pct_thresh,
-                                              grown=True)
-    hand_groups_grown.launches += 1
+    (groups, g_info, grown), multi = _hand_groups_cuda(
+        depth1, level, pct_thresh, grown=True)
+    hand_groups_grown.launches += not multi
     shape = (*lead, *groups.shape[-2:])
     return (grown.reshape(shape).to(depth1.dtype), g_info.reshape(*lead, 2, 3),
             groups.reshape(shape).to(depth1.dtype))
 
 
-# Kernel launches so far, per wrapper (the CPU path does not count).
+# Kernel launches so far, per wrapper (the CPU path does not count): the
+# single-block kernel's per entry, the multi-block path's for all three.
 label_components.launches = 0
 make_hand_groups.launches = 0
 hand_groups_grown.launches = 0
+hand_groups_multiblock.launches = 0

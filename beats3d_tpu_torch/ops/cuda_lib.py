@@ -142,31 +142,48 @@ def _compile() -> Build:
     return Build(path, seconds, log)
 
 
-def _bind(lib):
+def bind_forest(lib):
+    """Declares the C signatures of csrc/forest_eval.cu's entries on
+    ``lib`` (the port's library, or kernel_bench's build of this source)."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
+    descs = ctypes.POINTER(LayerDesc)
+    lib.b3d_layered_spill.argtypes = [i, i, i, i, descs, i, i]
+    lib.b3d_layered_spill.restype = ll
     lib.b3d_evaluate_layered.argtypes = [
-        vp, vp, i, i, i, i, f, ctypes.POINTER(LayerDesc), i, vp, i, i, vp,
+        vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp,
     ]
     lib.b3d_evaluate_layered.restype = i
+    lib.b3d_forest_spill.argtypes = [i, i, i, i, i, i, i, i]
+    lib.b3d_forest_spill.restype = ll
+    lib.b3d_evaluate_forest.argtypes = [
+        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, i, vp, vp,
+    ]
+    lib.b3d_evaluate_forest.restype = i
+    lib.b3d_forest_pdf_sum.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp, vp,
+    ]
+    lib.b3d_forest_pdf_sum.restype = i
+
+
+def _bind(lib):
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
+    bind_forest(lib)
     lib.b3d_plane_band_gauss.argtypes = [
         vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp,
     ]
     lib.b3d_plane_band_gauss.restype = i
-    lib.b3d_evaluate_forest.argtypes = [
-        vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, i, vp,
-    ]
-    lib.b3d_evaluate_forest.restype = i
-    lib.b3d_forest_pdf_sum.argtypes = [
-        vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp,
-    ]
-    lib.b3d_forest_pdf_sum.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
-    ll = ctypes.c_longlong
     lib.b3d_hand_groups_scratch.argtypes = [i, i]
     lib.b3d_hand_groups_scratch.restype = ll
     lib.b3d_hand_groups.argtypes = [vp, ll, ll, ll, i, i, i, *[vp] * 7]
     lib.b3d_hand_groups.restype = i
+    lib.b3d_hand_groups_mb_scratch.argtypes = [i, i]
+    lib.b3d_hand_groups_mb_scratch.restype = ll
+    lib.b3d_hand_groups_mb.argtypes = [vp, ll, ll, ll, i, i, i, *[vp] * 7]
+    lib.b3d_hand_groups_mb.restype = i
     # the scripts/ probes (beats3d_tpu_torch/probes): pointers, ints, stream
     for name, n_ptrs, n_ints in (
             ("b3d_probe_opcost", 3, 3), ("b3d_probe_reduce", 2, 3),

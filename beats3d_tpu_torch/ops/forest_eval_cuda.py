@@ -22,21 +22,24 @@ import torch
 from ..models.forest import PackedForest, forest_dims
 from . import cuda_lib, forest_eval
 
-MAX_LAYERS = 4
-MAX_CLASSES = 16
-MAX_CONDITIONS = 128
-MAX_TREES = 16
+# The kernels' grid holds at most 65,535 blocks of 8 label rows in y.
+MAX_LABEL_ROWS = 65535 * 8
+# A tree's 2**D - 1 node rows are indexed in 32 bits.
+MAX_LEVELS = 30
 
 
-def kernel_supports(layers, conditions) -> bool:
-    """Whether the kernel takes this model: at most 4 layers of at most 16
-    trees and 16 classes each, and a conditions table of at most 128 rows."""
-    return (
-        1 <= len(layers) <= MAX_LAYERS
-        and all(1 <= l.forest.num_classes <= MAX_CLASSES
-                and 1 <= l.forest.num_trees <= MAX_TREES for l in layers)
-        and 1 <= conditions.shape[0] <= MAX_CONDITIONS
-    )
+def _check_grid(what, h, r):
+    if h // r > MAX_LABEL_ROWS:
+        raise ValueError(
+            f"{what}: {h // r} label rows; the grid holds at most "
+            f"{MAX_LABEL_ROWS}")
+
+
+def _check_levels(what, levels):
+    if levels > MAX_LEVELS:
+        raise ValueError(
+            f"{what}: a tree of {levels} levels; the kernel indexes its "
+            f"2**D - 1 rows in 32 bits (D <= {MAX_LEVELS})")
 
 
 def evaluate_layered_plain(depth, layers, conditions, *, labels_reduce: int,
@@ -50,10 +53,31 @@ def evaluate_layered_plain(depth, layers, conditions, *, labels_reduce: int,
     )
 
 
+class LayerDescs:
+    """K1's layer descriptors for one model on one card: ``host``, the
+    ctypes array of ``cuda_lib.LayerDesc`` the C entry plans from, and
+    ``dev``, the same bytes in device memory, which the kernel reads."""
+
+    def __init__(self, host, device):
+        self.host = host
+        self.device = device
+        # from pinned memory, so the copy makes no host sync (a frame
+        # graph's warm-up may build them); the pinned bytes live as long
+        self._pinned = torch.frombuffer(bytearray(bytes(host)),
+                                        dtype=torch.uint8).pin_memory()
+        self.dev = self._pinned.to(device, non_blocking=True)
+
+    def __len__(self):
+        return len(self.host)
+
+
 def layer_descs(layers, device):
-    """The kernel's layer descriptors (ctypes array of ``LayerDesc``) for
-    ``layers``, whose repacked tables must lie on ``device``.  Build it once
-    per model (``models.layered.run_layered`` keeps it on the model)."""
+    """The kernel's layer descriptors (:class:`LayerDescs`) for ``layers``,
+    whose repacked tables must lie on ``device``.  Build it once per model
+    (``models.layered.run_layered`` keeps it on the model): it copies the
+    descriptors to the card."""
+    if not len(layers):
+        raise ValueError("evaluate_layered_cuda: a model needs a layer")
     descs = (cuda_lib.LayerDesc * len(layers))()
     for i, l in enumerate(layers):
         for name, t in (("header", l.header), ("pdf", l.pdf)):
@@ -66,13 +90,24 @@ def layer_descs(layers, device):
         if fm >= i:
             raise ValueError(
                 f"evaluate_layered_cuda: layer {i} filters on layer {fm}")
+        _check_levels("evaluate_layered_cuda", l.forest.max_depth)
         descs[i] = cuda_lib.LayerDesc(
             l.header.data_ptr(), l.pdf.data_ptr(), l.forest.num_trees,
             l.forest.max_depth, l.forest.num_classes, fm,
             0 if l.filter_model_class is None else int(l.filter_model_class),
         )
-    descs.device = device
-    return descs
+    return LayerDescs(descs, device)
+
+
+def _spill(ints, device):
+    """The kernels' per-pixel scratch in device memory, where a block's
+    shared memory cannot hold it (``ints`` int2 entries; none when 0)."""
+    return (torch.empty(2 * ints, dtype=torch.int32, device=device)
+            if ints else None)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
@@ -99,16 +134,12 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
         raise ValueError(
             f"evaluate_layered_cuda: depth must be contiguous (N, H, W) int32, "
             f"got {depth.dtype} {tuple(depth.shape)}")
-    if not kernel_supports(layers, conditions):
-        raise ValueError(
-            f"evaluate_layered_cuda: the kernel takes <= {MAX_LAYERS} layers "
-            f"of <= {MAX_TREES} trees and <= {MAX_CLASSES} classes, and <= "
-            f"{MAX_CONDITIONS} conditions")
     if (conditions.device != depth.device or conditions.dtype != torch.int32
-            or not conditions.is_contiguous()):
+            or not conditions.is_contiguous() or conditions.dim() != 2
+            or conditions.shape[1] != 2 or conditions.shape[0] < 1):
         raise ValueError(
-            "evaluate_layered_cuda: conditions must be contiguous int32 on "
-            "the depth's device")
+            "evaluate_layered_cuda: conditions must be a contiguous (K, 2) "
+            "int32 tensor of K >= 1 rows on the depth's device")
     if descs is None:
         descs = layer_descs(layers, depth.device)
     elif descs.device != depth.device or len(descs) != len(layers):
@@ -118,15 +149,19 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
         raise ValueError(f"evaluate_layered_cuda: lanes {lanes}")
     n, h, w = depth.shape
     r = int(labels_reduce)
+    _check_grid("evaluate_layered_cuda", h, r)
     out = torch.empty((n, h // r, w // r), dtype=torch.int32,
                       device=depth.device)
     lib = cuda_lib.library()
+    spill = _spill(lib.b3d_layered_spill(n, h, w, r, descs.host, len(descs),
+                                         int(lanes)), depth.device)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.b3d_evaluate_layered(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
-            descs, len(layers), conditions.data_ptr(), conditions.shape[0],
-            int(lanes), stream,
+            descs.host, descs.dev.data_ptr(), len(descs),
+            conditions.data_ptr(), conditions.shape[0], int(lanes),
+            _ptr(spill), stream,
         )
     cuda_lib.check(status, "evaluate_layered_cuda")
     evaluate_layered_cuda.launches += 1
@@ -162,10 +197,9 @@ def _check_forest(depth, forest, what):
             f"{what}: the forest must be a contiguous "
             "(T, 2**D - 1, 7 + 2C) float32 tensor on the depth's device")
     trees, levels, classes = forest_dims(forest.shape)
-    if not (1 <= trees <= MAX_TREES and classes <= MAX_CLASSES):
-        raise ValueError(
-            f"{what}: the kernel takes <= {MAX_TREES} trees "
-            f"and <= {MAX_CLASSES} classes, got {trees} and {classes}")
+    if trees < 1:
+        raise ValueError(f"{what}: the forest has no tree")
+    _check_levels(what, levels)
     return trees, levels, classes
 
 
@@ -180,8 +214,8 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
     it equals ``filter_class``; ``write_all_eligible=False`` writes only the
     pixels where every tree reached a leaf (single-tree semantics).  Returns
     (N, H//r, W//r) labels, 65535 where not written.  On CUDA: depth
-    contiguous int32, the forest contiguous float32 with T <= 16 and
-    C <= 16, the filter contiguous int32, all on one card; returns int32.
+    contiguous int32, the forest contiguous float32 (any T and C), the
+    filter contiguous int32, all on one card; returns int32.
     On the CPU: the plain version, in the depth's dtype.
     """
     kw = dict(labels_reduce=labels_reduce, filter_images=filter_images,
@@ -192,6 +226,7 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
     trees, levels, classes = _check_forest(depth, forest, "evaluate_forest_cuda")
     n, h, w = depth.shape
     r = int(labels_reduce)
+    _check_grid("evaluate_forest_cuda", h, r)
     out_shape = (n, h // r, w // r)
     if filter_images is not None and (
             filter_images.device != depth.device
@@ -203,13 +238,15 @@ def evaluate_forest_cuda(depth, forest, *, labels_reduce: int = 1,
             f"{out_shape} int32 tensor on the depth's device")
     out = torch.empty(out_shape, dtype=torch.int32, device=depth.device)
     lib = cuda_lib.library()
+    spill = _spill(lib.b3d_forest_spill(n, h, w, r, trees, classes, 0, 0),
+                   depth.device)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.b3d_evaluate_forest(
             depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
-            forest.data_ptr(), trees, levels, classes,
-            None if filter_images is None else filter_images.data_ptr(),
-            int(filter_class), int(bool(write_all_eligible)), 0, stream,
+            forest.data_ptr(), trees, levels, classes, _ptr(filter_images),
+            int(filter_class), int(bool(write_all_eligible)), 0, _ptr(spill),
+            stream,
         )
     cuda_lib.check(status, "evaluate_forest_cuda")
     evaluate_forest_cuda.launches += 1
@@ -227,8 +264,8 @@ def forest_pdf_sum_cuda(depth, forest, *, labels_reduce: int = 1,
     (N, H//r, W//r) bool), as :func:`.forest_eval.forest_pdf_sum`.
 
     depth: (N, H, W); forest: dense (T, 2**D - 1, 7 + 2C) float32.  On
-    CUDA (depth contiguous int32, the forest contiguous float32 with
-    T <= 16 and C <= 16, on one card) B1 in its pdf-sum mode: the sums are
+    CUDA (depth contiguous int32, the forest contiguous float32 of any T
+    and C, on one card) B1 in its pdf-sum mode: the sums are
     the plain version's bit for bit on eligible pixels; an ineligible pixel
     is not walked, its sums are 0 and its all_done True (the plain version
     walks it; ``labels_from_pdf`` never reads it).  On the CPU: the plain
@@ -241,18 +278,21 @@ def forest_pdf_sum_cuda(depth, forest, *, labels_reduce: int = 1,
     trees, levels, classes = _check_forest(depth, forest, "forest_pdf_sum_cuda")
     n, h, w = depth.shape
     r = int(labels_reduce)
+    _check_grid("forest_pdf_sum_cuda", h, r)
     shape = (n, h // r, w // r)
     pdf = torch.empty(shape + (classes,), dtype=torch.float32,
                       device=depth.device)
     eligible = torch.empty(shape, dtype=torch.uint8, device=depth.device)
     all_done = torch.empty(shape, dtype=torch.uint8, device=depth.device)
     lib = cuda_lib.library()
+    spill = _spill(lib.b3d_forest_spill(n, h, w, r, trees, classes, 1, 0),
+                   depth.device)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.b3d_forest_pdf_sum(
             depth.data_ptr(), pdf.data_ptr(), eligible.data_ptr(),
             all_done.data_ptr(), n, h, w, r, float(scale_factor),
-            forest.data_ptr(), trees, levels, classes, stream,
+            forest.data_ptr(), trees, levels, classes, _ptr(spill), stream,
         )
     cuda_lib.check(status, "forest_pdf_sum_cuda")
     forest_pdf_sum_cuda.launches += 1

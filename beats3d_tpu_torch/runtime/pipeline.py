@@ -449,7 +449,8 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
 # their launch counts around its capture to learn its launches per replay.
 FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
                  preproc_cuda.plane_band_gauss_cuda,
-                 components.hand_groups_grown)
+                 components.hand_groups_grown,
+                 components.hand_groups_multiblock)
 
 
 class FrameGraph:
@@ -517,11 +518,12 @@ class FramePipeline:
         self.cfg = cfg or PipelineConfig(
             height=intrinsics.height, width=intrinsics.width)
         self.backend = "cuda" if self.device.type == "cuda" else "torch"
-        if self.backend == "cuda" and not forest_eval_cuda.kernel_supports(
-                model.layers, model.conditions):
-            raise ValueError(
-                "the layered-eval kernel does not take this model (> 4 "
-                "layers, > 16 trees or classes, or > 128 conditions)")
+        if self.backend == "cuda" and model.kernel_descs is None:
+            # K1's layer descriptors, copied to the card now rather than in
+            # a frame graph's warm-up (on the tables' device: the model's
+            # may carry no index)
+            model.kernel_descs = forest_eval_cuda.layer_descs(
+                model.layers, model.layers[0].header.device)
         if mean_shift_variances is None:
             # 3d_bz.py:108-110 — class 1 (hand) wide, fingertips tight.
             mean_shift_variances = np.array(

@@ -9,7 +9,16 @@ with 0 label mismatches against plain and the flagship golden on the
 golden frames and the pipeline's live (2) and batched (32) hand crops,
 the grouping kernel bit for bit in its labels-only, hand-groups and stage
 modes on the 16 scenes' K2 output (live and batched), the oversized-hand
-frame, the serpentine and a checkerboard.
+frame, the serpentine and a checkerboard.  Past the widths the kernels
+once refused: B1 (labels and single-tree semantics) and its pdf-sum mode
+on the golden frames with forests of 17, 32 and 64 trees of 7 classes and
+17 trees of 17 and 33 classes, and K1 with 5 layers of 17 trees of 17
+classes and 129 and 300 condition rows (wide_forests_vs_plain, the forests
+random from a seed); the pipeline on that 5-layer model, 16 live calls and
+a batch of 16 from CUDA graphs, against the CPU pipeline (wide_pipeline);
+the multi-block grouping path at depth_mm_level 1 and 0, one frame and 16,
+and a 240x424 serpentine, then BeatsApp at level 1 for 16 ticks against
+the CPU (components_large).
 Then drives the port's paths:
 
 * the frame's CUDA graphs against the eager programs, bit for bit: the 16
@@ -36,7 +45,8 @@ Then drives the port's paths:
   held to the value every version of the kernels gave, then run again
   with its second candidate tree under torch.profiler (B4's and B1's
   device time in place, B4's per level); plus a reduced D=8 run compared
-  with the CPU and with streaming.  Before it, B4 word for word against
+  with the CPU and with streaming, and the same with a forest of 17 trees
+  (train_wide_card_vs_cpu: 17 candidates, the forest scored as a whole).  Before it, B4 word for word against
   plain at the trainer's mask, every pixel, a 1 % mask and the division
   edge (every centre depth 1..65534), and B1 against plain in five cases
   (``kernel_bench.b4_cases``, ``b1_cases``);
@@ -98,6 +108,7 @@ JSON line.  Needs a CUDA card; imports nothing of JAX.
 
 import argparse
 import base64
+import dataclasses
 import json
 import os
 import struct
@@ -154,10 +165,17 @@ B1 = forest_eval_cuda.evaluate_forest_cuda
 B4 = train_features_cuda.train_feature_bits_cuda
 B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
 GK = components.hand_groups_grown
+MB = components.hand_groups_multiblock
 # the frame kernels' names in a profiler trace: K1, K2, the grouping kernel
 FRAME_KERNEL_NAMES = ("evaluate_layered_kernel", "plane_band_gauss_kernel",
                       "hand_groups_kernel")
 FRAME_KERNEL_KEYS = ("k1", "k2", "grouping")
+# (key, wrapper, traced name) of the frame kernels; at depth_mm_level 1 the
+# grouping stage is the multi-block path (its first kernel is traced, once
+# per call)
+FRAME_KERNELS = tuple(zip(FRAME_KERNEL_KEYS, (K1, K2, GK), FRAME_KERNEL_NAMES))
+LEVEL1_KERNELS = FRAME_KERNELS[:2] + (
+    ("grouping_multiblock", MB, "hand_groups_mb_local"),)
 APP_FRAMES = 60
 PIPELINE_CHECK_FRAMES = 60       # ticks after the warm-up, in each mode
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
@@ -184,6 +202,15 @@ VIEWER_PROBE_FRAME = 36          # a render frame (every 6th push)
 STEREO_CASES = (("app", (1, 5, 9, 14, 18, 22, 26, 30), 32, 11),
                 ("jax_test", (1, 6, 2, 5, 3, 4, 6, 1), 16, 7))
 STEREO_PROFILED = 3
+# the wide models and forests (past 16 trees and classes, 4 layers, 128
+# condition rows), random from a seed
+WIDE_SEED = 11
+WIDE_LEVELS = 10
+WIDE_FORESTS = ((17, 7), (32, 7), (64, 7), (17, 17), (17, 33))
+WIDE_CONDITION_ROWS = (129, 300)
+WIDE_PIPE_LEVELS = 6             # the pipeline's wide model: shallower, as
+WIDE_TICKS, WIDE_CPU_FRAMES = 16, 4   # the CPU's plain walk compares it
+LEVEL1_TICKS = 16                # BeatsApp at depth_mm_level 1
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
 # source, the pallas_call it replaces, operations per element of x per count
 # step of that case: the bound's operation count)
@@ -424,7 +451,7 @@ def host_traffic(prof, calls):
         **{f"copies_{d}_per_call": c / calls for d, c in copies.items()})
 
 
-def profiled(run, calls, pipe):
+def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     """torch.profiler over ``calls`` calls of run(), each in a
     ``CALL_RANGE`` range, after one warm-up call that the profiler traces
     and drops (the schedule's warm-up step: without it a window's first
@@ -433,7 +460,10 @@ def profiled(run, calls, pipe):
     the launches traced by name, which must equal the sum over ``pipe``'s
     graphs of the replays in the window times the graph's launches per
     replay.  The wrappers' counts must not move: a replay goes through no
-    wrapper, and nothing else may launch a frame kernel."""
+    wrapper, and nothing else may launch a frame kernel.  ``kernels``:
+    (key, wrapper, traced name) of the frame kernels to hold; ``count``:
+    name parts whose kernels' launches and device ms per call are reported
+    as well."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=calls, repeat=1)
@@ -441,7 +471,7 @@ def profiled(run, calls, pipe):
         run()
         torch.cuda.synchronize()
         prof.step()
-        before = counts()
+        before = counts() + (MB.launches,)
         replays = {key: g.replays for key, g in pipe.graphs.items()}
         t0 = time.perf_counter()
         for i in range(calls):
@@ -457,12 +487,15 @@ def profiled(run, calls, pipe):
     res["graph_replays_per_call"] = sum(
         g.replays - replays.get(key, 0)
         for key, g in pipe.graphs.items()) / calls
-    if counts() != before:
+    if counts() + (MB.launches,) != before:
         raise AssertionError(f"a wrapper launched in the window: "
-                             f"{before} -> {counts()}")
+                             f"{before} -> {counts() + (MB.launches,)}")
+    for needle in count:
+        n, ms = kernel_device_ms(prof, needle)
+        res[needle] = dict(launches_per_call=n / calls,
+                           device_ms_per_call=n * (ms or 0.0) / calls)
     res["traced"] = {}
-    for name, kernel, needle in zip(FRAME_KERNEL_KEYS, (K1, K2, GK),
-                                    FRAME_KERNEL_NAMES):
+    for name, kernel, needle in kernels:
         n, ms = kernel_device_ms(prof, needle)
         want = sum((g.replays - replays.get(key, 0)) * g.launches[
             kernel.__name__] for key, g in pipe.graphs.items())
@@ -507,7 +540,7 @@ def phase_main_path(inp, smi):
                 + 2 * (1 + PROFILED_FRAMES))
     synth = [f for f, _ in zip(source.frames(), range(n_frames))]
     it = iter(synth)
-    K1.launches = K2.launches = GK.launches = 0
+    K1.launches = K2.launches = GK.launches = MB.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
     t_cal = time.perf_counter()
@@ -561,7 +594,7 @@ def phase_main_path(inp, smi):
         raise AssertionError(f"batched: {w}")
     # every launch of the run's wrappers was a graph's warm-up or capture
     if (min(wrapper) < 1 or wrapper != captured_launches(app.pipeline)
-            or live.replays != ticks):
+            or live.replays != ticks or MB.launches != 0):
         raise AssertionError(f"wrapper launches {wrapper}, captured "
                              f"{captured_launches(app.pipeline)}; "
                              f"{live.replays} live replays, {ticks} ticks")
@@ -1711,41 +1744,312 @@ def phase_grouping_path(inp, smi):
                              f"mismatches, centroid rel {info_rel}")
 
 
+def wide_model(dev, rows, levels=WIDE_LEVELS):
+    """The 5-layer wide model (17 trees of 17 classes a layer, ``rows``
+    condition rows) from its seed, on ``dev``."""
+    specs, cond, colors = kb.wide_layered(np.random.default_rng(WIDE_SEED),
+                                          5, 17, 17, rows, levels)
+    return LayeredDecisionForest.from_numpy(specs, cond, colors, dev,
+                                           labels_reduce=2)
+
+
+def phase_wide_forests(inp, dev, smi):
+    """B1 (label mode and single-tree semantics) and its pdf-sum mode on the
+    golden frames at r=1 with forests past 16 trees and 16 classes, and K1
+    with 5 layers of 17 trees of 17 classes and 129 and 300 condition rows
+    on the golden frames and the live crops, every forest random from
+    WIDE_SEED: labels against plain (0 mismatches), sums bit-equal on
+    eligible pixels; device ms from a CUDA graph, the bound from the node
+    rows the plain walk visits.  Returns the results by case."""
+    depth = inp.golden
+    rng = np.random.default_rng(WIDE_SEED)
+    res, bad = {}, {}
+    for trees, classes in WIDE_FORESTS:
+        flat = torch.as_tensor(kb.random_forest(
+            rng, trees, WIDE_LEVELS, classes)).to(dev)
+        tables = PackedForest.from_flat(flat).tables()
+        for mode, kw in (("labels", {}),
+                         ("single_tree", dict(write_all_eligible=False))):
+            got = B1(depth, flat, **kw)
+            want = forest_eval.evaluate_forest(depth, tables, **kw)
+            torch.cuda.synchronize()
+            key = f"b1/T{trees}/C{classes}/{mode}"
+            res[key] = dict(
+                mismatches=int((got != want).sum()),
+                max_abs_err=int((got - want).abs().max()),
+                written=int((got != 65535).sum()),
+                ms=graph_ms(lambda: B1(depth, flat, **kw)),
+                plain_ms=host_ms(lambda: forest_eval.evaluate_forest(
+                    depth, tables, **kw), iters=1),
+                **dict(zip(("bound_ms", "bound_by"), kb.bound(
+                    *kb.forest_work(depth, flat, **kw)))),
+                library_ms=None)
+            say("wide_forests_vs_plain", card=smi, kernel="B1", case=key,
+                shape=list(depth.shape), **res[key])
+            if res[key]["mismatches"]:
+                bad[key] = res[key]["mismatches"]
+        got = B1_PDF(depth, flat)
+        want = forest_eval.forest_pdf_sum(depth, tables)
+        torch.cuda.synchronize()
+        key = f"pdf_sum/T{trees}/C{classes}"
+        differ = kb.pdf_sum_differ(got, want)
+        res[key] = dict(
+            max_abs_err=float((got[0] - want[0]).abs().amax(-1)[got[1]].max()),
+            ms=graph_ms(lambda: B1_PDF(depth, flat)),
+            plain_ms=host_ms(lambda: forest_eval.forest_pdf_sum(
+                depth, tables), iters=1),
+            **dict(zip(("bound_ms", "bound_by"), kb.bound(
+                *kb.pdf_sum_work(depth, flat)))),
+            library_ms=None)
+        say("wide_forests_vs_plain", card=smi, kernel="B1 pdf-sum", case=key,
+            shape=list(depth.shape), differ=differ, **res[key])
+        if any(differ.values()):
+            bad[key] = differ
+    for rows in WIDE_CONDITION_ROWS:
+        m = wide_model(dev, rows)
+        for name, d in (("golden", inp.golden), ("live", inp.crops[:2])):
+            got, mism, max_err = compare_layered(m, d)
+            bytes_moved, ops, visits = kb.k1_work(m, d)
+            key = f"k1/L5/T17/C17/rows{rows}/{name}"
+            res[key] = dict(
+                mismatches=mism, max_abs_err=max_err,
+                labelled=int(((got != 65535) & (got != 0)).sum()),
+                ms=graph_ms(lambda: K1(d, m.layers, m.conditions,
+                                       labels_reduce=2)),
+                plain_ms=host_ms(lambda: forest_eval_cuda.evaluate_layered_plain(
+                    d, m.layers, m.conditions, labels_reduce=2), iters=1),
+                **dict(zip(("bound_ms", "bound_by"),
+                           kb.bound(bytes_moved, ops))),
+                library_ms=None,
+                pixels_per_layer=[v["steps"] for v in visits])
+            say("wide_forests_vs_plain", card=smi, kernel="K1", case=key,
+                shape=list(d.shape), **res[key])
+            if mism:
+                bad[key] = mism
+    if bad:
+        raise AssertionError(f"wide forests against plain: {bad}")
+    return res
+
+
+def phase_wide_pipeline(inp, smi):
+    """FramePipeline on the card with the 5-layer wide model (129 condition
+    rows): WIDE_TICKS live calls (the graph BeatsApp replays per tick) and
+    one batched call of the 16 scenes, both captured as CUDA graphs, K1
+    counted through the graphs' warm-ups and captures; labels equal to the
+    CPU pipeline's (the same tables on the CPU) and heights within rtol
+    1e-5, on the first WIDE_CPU_FRAMES live frames and the batch of those
+    frames (the plain layered walk takes ~10 s a frame on the CPU)."""
+    card = pl.FramePipeline(wide_model(inp.plane.device, 129, WIDE_PIPE_LEVELS),
+                            inp.intrin)
+    host = pl.FramePipeline(wide_model("cpu", 129, WIDE_PIPE_LEVELS),
+                            inp.intrin)
+    K1.launches = K2.launches = GK.launches = MB.launches = 0
+    live = [card(inp.frames[i % BATCH], inp.plane) for i in range(WIDE_TICKS)]
+    batch = card.batch(inp.frames, inp.plane)
+    torch.cuda.synchronize()
+    wrapper = counts() + (MB.launches,)
+    graphs = graph_table(card)
+    if wrapper != captured_launches(card) + (0,) or min(wrapper[:3]) < 1:
+        raise AssertionError(f"wide pipeline: wrapper launches {wrapper}, "
+                             f"captured {captured_launches(card)}")
+    plane = inp.plane.cpu()
+    pairs = [(live[i], host(inp.scenes[i], plane))
+             for i in range(WIDE_CPU_FRAMES)]
+    hb = host.batch(inp.scenes[:WIDE_CPU_FRAMES], plane)
+    pairs += [({k: v[i] for k, v in batch.items()},
+               {k: v[i] for k, v in hb.items()})
+              for i in range(WIDE_CPU_FRAMES)]
+    worst, labelled = 0.0, 0
+    for i, (a, b) in enumerate(pairs):
+        la, lb = a["labels"].cpu().numpy(), b["labels"].numpy()
+        if (la != lb).any():
+            raise AssertionError(f"wide pipeline, output {i}: "
+                                 f"{int((la != lb).sum())} label mismatches")
+        labelled += int(((la != 65535) & (la != 0)).sum())
+        va, vb = a["tip_valid"].cpu().numpy(), b["tip_valid"].numpy()
+        if (va != vb).any():
+            raise AssertionError(f"wide pipeline, output {i}: tip_valid")
+        ha, hb_ = a["heights"].cpu().numpy()[va], b["heights"].numpy()[vb]
+        np.testing.assert_allclose(ha, hb_, rtol=1e-5)
+        if len(ha):
+            worst = max(worst, float(np.max(np.abs(ha - hb_) / np.abs(hb_))))
+    if labelled == 0:
+        raise AssertionError("wide pipeline: no pixel labelled")
+    say("wide_pipeline", card=smi, layers=5, trees=17, classes=17,
+        condition_rows=129, levels=WIDE_PIPE_LEVELS, live_calls=WIDE_TICKS,
+        batch=BATCH, wrapper_launches=dict(zip(
+            FRAME_KERNEL_KEYS + ("grouping_multiblock",), wrapper)),
+        graphs=graphs, compared_with_cpu=len(pairs), labels_equal=True,
+        labelled_pixels=labelled, heights_max_rel_err=worst)
+    return wrapper[0]
+
+
+def phase_train_wide(intrin, dev, smi):
+    """train_forest(trees_in_forest=17) on the reduced training case, on the
+    card and on the CPU, each with a checkpoint directory: 17 candidate
+    trees, then the forest of 17 scored as a whole (B1 at T = 17, where it
+    once raised after the checkpoint was gone).  The forests byte-equal,
+    pct_match equal, the checkpoint removed only after a finished run."""
+    import tempfile
+
+    train, test, cfg = reduced_case(intrin)
+    cfg.update(trees_in_forest=17, trees_to_try=17)
+    out = {}
+    B1.launches = B4.launches = 0
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            out[name] = train_forest(train, test,
+                                     rng=np.random.default_rng(23),
+                                     device=device, checkpoint_dir=ckpt, **cfg)
+            out[name + "_s"] = time.perf_counter() - t0
+            out[name + "_ckpt_left"] = sorted(os.listdir(ckpt))
+        if name == "card":
+            launches = dict(B4=B4.launches, B1=B1.launches)
+    equal = out["card"].data.tobytes() == out["cpu"].data.tobytes()
+    say("train_wide_card_vs_cpu", card=smi, trees=17, depth=8,
+        forest_shape=list(out["card"].data.shape), trees_equal=equal,
+        pct_match_card=out["card"].pct_match,
+        pct_match_cpu=out["cpu"].pct_match, launches=launches,
+        checkpoint_left=[out["card_ckpt_left"], out["cpu_ckpt_left"]],
+        card_seconds=out["card_s"], cpu_seconds=out["cpu_s"])
+    if (not equal or out["card"].pct_match != out["cpu"].pct_match
+            or launches["B1"] < 18 or out["card_ckpt_left"]
+            or out["cpu_ckpt_left"]):
+        raise AssertionError("the 17-tree forest: card and CPU differ, or "
+                             "B1 did not score it")
+
+
+def phase_components_large(inp, smi):
+    """The multi-block grouping path (images past one block) against the
+    plain versions in the stage and labels-only modes: the 16 scenes' K2
+    output at depth_mm_level 1 (240x424) and 0 (480x848), one frame and
+    the batch of 16, and the 240x424 serpentine; integer outputs and sizes
+    equal, centroids bit-equal (to the exact sums where the plain float32
+    sums pass 2**24: ROADMAP C-w15).  Device ms from a CUDA graph and the
+    bound.  Then BeatsApp at level 1 (its
+    pipeline's frame graph holding the multi-block path) for
+    LEVEL1_TICKS ticks, unpipelined, under torch.profiler (the path's five
+    kernels traced per tick), each tick's labels and heights equal to the
+    CPU pipeline's on the same frame and plane.  Returns (results by case, the path's launches traced)."""
+    pct = inp.pipe.gms
+    depth1 = kb.grouping_depth(inp)
+    serp = torch.as_tensor(kb.serpentine(240, 424)[None]).to(depth1)
+    cases = {"level1_live": (depth1[:1], 1), "level1_batch": (depth1, 1),
+             "level0_live": (depth1[:1], 0), "level0_batch": (depth1, 0),
+             "serpentine": (serp, 0)}
+    res, bad = {}, {}
+    for name, (depth, lvl) in cases.items():
+        small = depth[..., ::1 << lvl, ::1 << lvl]
+        runs = grouping_runs(depth, lvl, pct)
+        for mode in ("labels", "stage"):
+            kernel, plain = runs[mode]
+            before = MB.launches
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if MB.launches != before + 1:
+                raise AssertionError(f"{name}: the multi-block path did not "
+                                     "launch")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            cmp = kb.grouping_compare(got, want, small,
+                                      got[-1] if mode == "stage" else None)
+            hs, ws = small.shape[-2:]
+            key = f"{name}/{mode}"
+            res[key] = dict(
+                mismatches=cmp["mismatches"], max_abs_err=max(
+                    float((a.double() - b.double()).abs().max())
+                    for a, b in zip(got, want)),
+                ms=graph_ms(kernel), plain_ms=host_ms(plain, iters=2),
+                **dict(zip(("bound_ms", "bound_by"), kb.bound(
+                    *kb.grouping_work(depth.shape[0], hs, ws, mode)))),
+                library_ms=None)
+            say("components_large", card=smi, case=name, mode=mode,
+                shape=list(depth.shape), level=lvl, max_sum=cmp["max_sum"],
+                plain_centroid_ulps=cmp["plain_centroid_ulps"], **res[key])
+            if cmp["mismatches"]:
+                bad[key] = cmp
+    if bad:
+        raise AssertionError(f"multi-block grouping against plain: {bad}")
+
+    source = SyntheticSource(inp.intrin)
+    app = BeatsApp(inp.model, source, midi=Midi(),
+                   cfg=AppConfig(pipelined=False), log=lambda *a: None)
+    cfg1 = dataclasses.replace(app.pipeline.cfg, depth_mm_level=1)
+    app.pipeline = pl.FramePipeline(
+        inp.model, inp.intrin, cfg=cfg1,
+        plane_z_threshold=app.cfg.plane_z_outlier_threshold,
+        group_min_size=app.cfg.group_min_size)
+    host = pl.FramePipeline(LayeredDecisionForest.load(
+        os.path.join(FLAGSHIP, "model_cfg.json"), labels_reduce=2,
+        device="cpu"), inp.intrin, cfg=cfg1,
+        plane_z_threshold=app.cfg.plane_z_outlier_threshold,
+        group_min_size=app.cfg.group_min_size)
+    frames = iter([f for f, _ in zip(
+        source.frames(), range(app.cfg.warmup_frames + 2 + LEVEL1_TICKS))])
+    K1.launches = K2.launches = GK.launches = MB.launches = 0
+    for _ in range(app.cfg.warmup_frames + 1):     # warm-up, plane, capture
+        app.tick(next(frames))
+    seen = []
+
+    def tick():
+        f = next(frames)
+        seen.append((f.depth, app.tick(f)))
+
+    window = profiled(tick, LEVEL1_TICKS, app.pipeline,
+                      kernels=LEVEL1_KERNELS, count=("hand_groups_mb_",))
+    torch.cuda.synchronize()
+    wrapper = counts() + (MB.launches,)
+    if (wrapper != captured_launches(app.pipeline) + (2,)
+            or wrapper[2] != 0):
+        raise AssertionError(f"level-1 app: wrapper launches {wrapper}")
+    plane = app.calibrated_plane.get_mat().cpu()
+    worst = 0.0
+    for i, (depth, out) in enumerate(seen):
+        want = host(depth, plane)
+        la, lb = out["labels"].cpu().numpy(), want["labels"].numpy()
+        va, vb = out["tip_valid"].cpu().numpy(), want["tip_valid"].numpy()
+        if (la != lb).any() or (va != vb).any():
+            raise AssertionError(f"level-1 app, tick {i}: "
+                                 f"{int((la != lb).sum())} label mismatches")
+        ha, hb = out["heights"].cpu().numpy()[va], want["heights"].numpy()[vb]
+        np.testing.assert_allclose(ha, hb, rtol=1e-5)
+        if len(ha):
+            worst = max(worst, float(np.max(np.abs(ha - hb) / np.abs(hb))))
+        if not (out["g_info"][:, 0] > 0).any():
+            raise AssertionError(f"level-1 app, tick {i}: no hand")
+    traced = window["traced"]["grouping_multiblock"]
+    say("components_large", card=smi, case="beats_app_level1",
+        ticks=len(seen), labels_equal_cpu=True, heights_max_rel_err=worst,
+        wrapper_launches=dict(zip(FRAME_KERNEL_KEYS + ("grouping_multiblock",),
+                                  wrapper)),
+        profiled=window)
+    return res, traced
+
+
 def phase_pdf_sum(model, dev):
     """B1's pdf-sum mode against the plain forest_pdf_sum on the golden
     frames: the fine forest (T=4, D=16, C=7) at r=1, its two 2-tree shards,
-    and r=2 at scale 0.5.  Eligibility equal; sums and all_done bit-equal
-    on eligible pixels (0 and True elsewhere)."""
-    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
-    depth = torch.as_tensor(gold["depth"]).to(dev).to(torch.int32).contiguous()
-    fine = model.layers[1].flat
-    cases = {"golden_r1": (fine, dict(labels_reduce=1)),
-             "shard_0": (fine[:2].contiguous(), dict(labels_reduce=1)),
-             "shard_1": (fine[2:].contiguous(), dict(labels_reduce=1)),
-             "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5))}
+    and r=2 at scale 0.5 (``kernel_bench.pdf_sum_cases``).  Eligibility
+    equal; sums and all_done bit-equal on eligible pixels (0 and True
+    elsewhere)."""
+    depth, cases = kb.pdf_sum_cases(model, dev)
     res, bad = {}, {}
     for name, (flat, kw) in cases.items():
         tables = PackedForest.from_flat(flat).tables()
-        pdf, elig, done = B1_PDF(depth, flat, **kw)
-        w_pdf, w_elig, w_done = forest_eval.forest_pdf_sum(depth, tables, **kw)
+        got = B1_PDF(depth, flat, **kw)
+        want = forest_eval.forest_pdf_sum(depth, tables, **kw)
         torch.cuda.synchronize()
-        e = elig.cpu().numpy()
-        diff = dict(
-            eligible=int((elig != w_elig).sum()),
-            sums=int((pdf.cpu().numpy().view(np.uint32)
-                      != w_pdf.cpu().numpy().view(np.uint32))[e].sum()),
-            all_done=int((done != w_done).cpu().numpy()[e].sum()),
-            ineligible_nonzero=int(pdf.cpu().numpy()[~e].any(-1).sum()
-                                   + (~done.cpu().numpy()[~e]).sum()))
+        diff = kb.pdf_sum_differ(got, want)
         bound_ms, bound_by = kb.bound(*kb.pdf_sum_work(depth, flat, **kw))
         res[name] = dict(
-            max_abs_err=float((pdf - w_pdf).abs().amax(-1)[elig].max()),
+            max_abs_err=float((got[0] - want[0]).abs().amax(-1)[got[1]].max()),
             ms=graph_ms(lambda: B1_PDF(depth, flat, **kw)),
             plain_ms=host_ms(lambda: forest_eval.forest_pdf_sum(
                 depth, tables, **kw), iters=2),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         say("pdf_sum_vs_plain", case=name, shape=list(depth.shape),
-            trees=int(flat.shape[0]), eligible_pixels=int(e.sum()),
+            trees=int(flat.shape[0]), eligible_pixels=int(got[1].sum()),
             differ=diff, **res[name])
         if any(diff.values()):
             bad[name] = diff
@@ -1926,6 +2230,10 @@ def main():
     k2 = run("k2_vs_plain", phase_preproc, inp)
     k1 = run("k1_vs_plain", phase_layered, inp)
     uf = run("components_vs_plain", phase_components, inp, smi)
+    wide = run("wide_forests_vs_plain", phase_wide_forests, inp, dev, smi)
+    run("wide_pipeline", phase_wide_pipeline, inp, smi)
+    large, mb_launches = run("components_large", phase_components_large, inp,
+                             smi)
     run("graph_vs_eager", phase_graph_vs_eager, inp, smi)
     launches = run("main_path", phase_main_path, inp, smi)
     run("pipelined_vs_not", phase_pipelined_vs_not, inp, smi)
@@ -1937,6 +2245,7 @@ def main():
                                            inp.intrin, dev, smi)
     run("train_card_vs_cpu", phase_train_card_vs_cpu, inp.intrin, dev)
     run("train_streaming", phase_train_streaming, inp.intrin, dev)
+    run("train_wide_card_vs_cpu", phase_train_wide, inp.intrin, dev, smi)
     tables, probe_launches = run("probes_path", phase_probes_path, smi)
     probe_res = run("probes_vs_plain", phase_probes_vs_plain, dev, tables,
                     probe_launches)
@@ -1957,10 +2266,16 @@ def main():
     # K1, K2 and the grouping kernel run inside CUDA graphs on the main
     # path: their launches are the kernel records traced in main_path's
     # profiled windows (each held there to the graphs' replays)
+    def worst(res, prefix):
+        return max(v["max_abs_err"] for k, v in res.items()
+                   if k.startswith(prefix))
+
     kernels = [
         entry("evaluate_layered_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:2230", launches[0],
-              k1["live"]),
+              dict(k1["live"], max_abs_err=max(
+                  worst(wide, "k1/"), *(v["max_abs_err"]
+                                        for v in k1.values())))),
         entry("plane_band_gauss_cuda", "preproc.cu",
               "beats3d_tpu/ops/preproc_pallas.py:126", launches[1], k2[1]),
         entry("hand_groups_grown", "components.cu",
@@ -1971,15 +2286,24 @@ def main():
         entry("evaluate_forest_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
               dict(b1["golden_r1"], max_abs_err=max(
-                  v["max_abs_err"] for v in b1.values()))),
+                  worst(wide, "b1/"), *(v["max_abs_err"]
+                                        for v in b1.values())))),
         entry("train_feature_bits_cuda", "train_features.cu",
               "beats3d_tpu/ops/train_features_pallas.py:191 and :238",
               train_launches[0], b4),
+        entry("hand_groups_multiblock", "components.cu",
+              "beats3d_tpu/ops/components.py:120 (the lax.while_loop of "
+              "label_components), :127-202 (make_hand_groups' selection) "
+              "and beats3d_tpu/ops/points.py:176 (grow_groups) on mipmaps "
+              "past one block (depth_mm_level <= 1); not a pallas_call",
+              mb_launches, dict(large["level1_live/stage"], max_abs_err=max(
+                  v["max_abs_err"] for v in large.values()))),
         entry("evaluate_forest_pdf_sum_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940 (pdf sums; JAX's "
               "mesh path runs forest_eval.py:82)", mesh_launches,
               dict(pdf_sum["golden_r1"], max_abs_err=max(
-                  v["max_abs_err"] for v in pdf_sum.values()))),
+                  worst(wide, "pdf_sum/"), *(v["max_abs_err"]
+                                             for v in pdf_sum.values())))),
     ] + run("probe_bounds", probe_entries, dev, probe_res, probe_launches)
     say("wall_seconds", **walls)
     print(json.dumps({"kernels": kernels}))

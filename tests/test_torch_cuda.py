@@ -413,7 +413,7 @@ def test_forest_kernel_every_lane_grouping(rng_np, cuda_dev):
     last level, and both write_all_eligible."""
     depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 30, 70))
     depth = depth.to(cuda_dev).to(torch.int32).contiguous()
-    lib = cuda_lib.library()
+    lib = kernel_bench.current_lib()
     for trees in (1, 3, 4):
         flat = torch.as_tensor(_deep_forest(rng_np, trees, 9, 7, deep_walk=True))
         flat = flat.to(cuda_dev).contiguous()
@@ -533,7 +533,7 @@ def test_forest_pdf_sum_kernel_rejects_bad_input(rng_np, cuda_dev):
     with pytest.raises(ValueError):
         k(depth.to(torch.int16), flat.to(cuda_dev))
     with pytest.raises(ValueError):
-        k(depth, torch.zeros((17, 15, 17), device=cuda_dev))   # 17 trees
+        k(depth, torch.zeros((2, 14, 17), device=cuda_dev))   # not 2**D - 1
 
 
 @pytest.mark.cuda
@@ -887,26 +887,32 @@ def bench():
 def _grouping_modes(depth, level, pct):
     """The grouping kernel's three modes against their plain versions on
     depth (B, H, W): labels, make_hand_groups and the stage, bit for bit,
-    each one launch of its wrapper."""
+    each one launch of its wrapper (of the multi-block path's for an image
+    of more than BLOCK_PIXELS pixels)."""
     from beats3d_tpu_torch.ops import components as c
 
     f = 1 << level
     small = depth[..., ::f, ::f]
+    multi = small.shape[-2] * small.shape[-1] > c.BLOCK_PIXELS
     runs = ((c.label_components, (small > 0,), c.label_components_plain),
             (c.make_hand_groups, (small, pct), c.make_hand_groups_plain),
             (c.hand_groups_grown, (depth, level, pct),
              c.hand_groups_grown_plain))
     for fn, args, plain in runs:
-        before = fn.launches
+        counter = c.hand_groups_multiblock if multi else fn
+        before = counter.launches
         got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1, fn.__name__
-        for a, b in zip(got if isinstance(got, tuple) else (got,),
-                        want if isinstance(want, tuple) else (want,)):
+        assert counter.launches == before + 1, fn.__name__
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape, fn.__name__
-            if a.is_floating_point():
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            assert torch.equal(a, b), (fn.__name__, tuple(depth.shape))
+        # bit for bit, the centroids past 2**24 against the exact sums
+        # (ROADMAP C-w15)
+        groups = got[-1] if fn is c.hand_groups_grown else got[0]
+        res = kernel_bench.grouping_compare(got, want, small, groups)
+        assert res["mismatches"] == 0, (fn.__name__, tuple(depth.shape), res)
 
 
 @pytest.mark.cuda
@@ -915,9 +921,9 @@ def test_components_kernel_matches_plain(cuda_dev, bench):
     stage with the grow) against the plain versions: the 16 bench scenes'
     K2 output at the pipeline's level 3 (one launch for the batch, one for
     a live frame), random masks at 60x106 and 120x212 (the per-root sums
-    in the scratch), 1x1, 1xW and Hx1, exactly MAX_PIXELS (227x256), a
-    checkerboard, the serpentine and all on; an image one pixel past the
-    limit raises in every mode."""
+    in the scratch), 1x1, 1xW and Hx1, exactly BLOCK_PIXELS (227x256), a
+    checkerboard, the serpentine and all on; an image one pixel past
+    BLOCK_PIXELS takes the multi-block path, equal in every mode."""
     from beats3d_tpu_torch.ops import components
 
     depth1 = kernel_bench.grouping_depth(bench)
@@ -940,13 +946,10 @@ def test_components_kernel_matches_plain(cuda_dev, bench):
     _grouping_modes(dev(cb[None] * 3), 0, 0.0)
     _grouping_modes(dev(kernel_bench.serpentine()[None]), 0, 0.001)
     _grouping_modes(dev(np.ones((2, 60, 106))), 0, 0.06)
-    over = torch.ones((1, 1, components.MAX_PIXELS + 1), dtype=torch.int32,
-                      device=cuda_dev)
-    for call in (lambda: components.label_components(over > 0),
-                 lambda: components.make_hand_groups(over, 0.06),
-                 lambda: components.hand_groups_grown(over, 0, 0.06)):
-        with pytest.raises(ValueError, match=str(components.MAX_PIXELS)):
-            call()
+    over = (rng.random((1, 1, components.BLOCK_PIXELS + 1)) < 0.7) * 3
+    _grouping_modes(dev(over), 0, 0.0)
+    _grouping_modes(dev(np.ones((1, 1, components.BLOCK_PIXELS + 1))), 0,
+                    0.06)
 
 
 @pytest.mark.cuda
@@ -1062,7 +1065,7 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     pipe(bench.frames[0], bench.plane)
     captured = [k.launches for k in pl.FRAME_KERNELS]
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
-    assert list(graph.launches.values()) == [2, 1, 1]
+    assert list(graph.launches.values()) == [2, 1, 1, 0]
     assert [a - b for a, b in zip(captured, before)] == [
         2 * graph.launches[k.__name__] for k in pl.FRAME_KERNELS]
     for depth in bench.frames[1:4]:
@@ -1071,3 +1074,194 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     assert [k.launches for k in pl.FRAME_KERNELS] == captured
     assert graph.replays == 4
 
+
+
+# --- forests, models and images past the earlier kernels' caps ------------
+
+def _wide_model(dev, layers=5, trees=17, classes=17, cond_rows=129,
+                levels=6, seed=11):
+    specs, cond, colors = kernel_bench.wide_layered(
+        np.random.default_rng(seed), layers, trees, classes, cond_rows, levels)
+    return LayeredDecisionForest.from_numpy(specs, cond, colors, dev,
+                                           labels_reduce=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trees,classes", [
+    (17, 7), (32, 7), (64, 7), (17, 17), (17, 33), (64, 33)])
+def test_forest_kernel_wide_forests(rng_np, cuda_dev, trees, classes):
+    """B1 past 16 trees and 16 classes (classes in chunks of 16, the argmax
+    carried across them), both semantics, every lane grouping at T = 17;
+    the pdf-sum mode bit for bit on the same forests."""
+    flat = torch.as_tensor(_deep_forest(rng_np, trees, 6, classes,
+                                        deep_walk=True)).to(cuda_dev)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 38, 94))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    for write_all in (True, False):
+        labels = _b1_same_as_plain(depth, flat, write_all_eligible=write_all)
+        assert (labels != 65535).any() or not write_all
+    labels = _b1_same_as_plain(depth, flat)
+    if classes > 16:
+        assert (labels > 16).any() and (labels < 16).any()
+    _pdf_sum_same_as_plain(depth, flat, labels_reduce=1)
+    _pdf_sum_same_as_plain(depth, flat, labels_reduce=2, scale_factor=0.5)
+    if trees == 17:
+        want = forest_eval_cuda.evaluate_forest_plain(depth, flat)
+        for lanes in (1, 2, 4, 8, 16):
+            run = kernel_bench.forest_runner(kernel_bench.current_lib(),
+                                             lanes=lanes)
+            np.testing.assert_array_equal(run(depth, flat).cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,trees,classes,cond_rows", [
+    (5, 17, 17, 129), (5, 17, 17, 300), (6, 32, 33, 300), (1, 64, 3, 7)])
+def test_layered_kernel_wide_models(cuda_dev, layers, trees, classes,
+                                    cond_rows):
+    """K1 with 5 and 6 layers of 17-32 trees and 17-33 classes and
+    conditions of 129 and 300 rows (the composite reads the last ones),
+    and one layer of 64 trees; every lane grouping on the first."""
+    m = _wide_model(cuda_dev, layers, trees, classes, cond_rows)
+    rng = np.random.default_rng(12)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng, 2, 64, 120))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    labels = _k1_same_as_plain(m, depth, 2)
+    assert ((labels != 65535) & (labels != 0)).any()
+    if (layers, cond_rows) == (5, 129):
+        for lanes in (1, 2, 4, 8, 16):
+            _k1_same_as_plain(m, depth, 2, lanes=lanes)
+
+
+@pytest.mark.cuda
+def test_kernels_spill_scratch_to_device_memory(rng_np, cuda_dev):
+    """2,000 trees: a pixel's scratch no longer fits a block at 16 lanes,
+    so B1, its pdf-sum mode and K1 keep it in device memory."""
+    lib = cuda_lib.library()
+    flat = torch.as_tensor(_deep_forest(rng_np, 2000, 3, 5)).to(cuda_dev)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 1, 8, 40))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    assert lib.b3d_forest_spill(1, 8, 40, 1, 2000, 5, 0, 0) > 0
+    assert lib.b3d_forest_spill(1, 8, 40, 1, 2000, 5, 1, 0) > 0
+    _b1_same_as_plain(depth, flat)
+    _pdf_sum_same_as_plain(depth, flat, labels_reduce=1)
+    specs = [(flat.cpu().numpy(), None, None),
+             (flat.cpu().numpy()[:300], 0, 1)]
+    cond = np.array([[1, 5], [0, 1], [0, 2], [0, 3], [0, 4], [0, 1], [0, 2],
+                     [0, 3], [0, 4], [0, 5]], np.int32)
+    colors = np.full((5, 4), 255, np.uint8)
+    m = LayeredDecisionForest.from_numpy(specs, cond, colors, cuda_dev,
+                                         labels_reduce=1)
+    descs = forest_eval_cuda.layer_descs(m.layers, cuda_dev)
+    assert lib.b3d_layered_spill(1, 8, 40, 1, descs.host, 2, 0) > 0
+    _k1_same_as_plain(m, depth, 1)
+
+
+@pytest.mark.cuda
+def test_kernels_take_more_images_than_a_grid(rng_np, cuda_dev):
+    """65,537 images (one more than a launch's grid takes in z): B1, the
+    pdf-sum mode and K1 launch in slices and equal the plain versions."""
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 65537, 2, 4))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    flat = torch.as_tensor(_deep_forest(rng_np, 3, 4, 5)).to(cuda_dev)
+    _b1_same_as_plain(depth, flat)
+    _pdf_sum_same_as_plain(depth, flat, labels_reduce=1)
+    m = _layered(rng_np, cuda_dev, 3, depths=(3, 4), r=1)
+    _k1_same_as_plain(m, depth, 1)
+
+
+@pytest.mark.cuda
+def test_no_cuda_entry_raises_for_a_count(cuda_dev, bench):
+    """No CUDA entry refuses a tree, class, layer, condition or pixel
+    count: 64 trees of 33 classes through B1 and its pdf-sum mode, 6
+    layers and 300 condition rows through K1 and the pipeline, and the
+    grouping stage at levels 1 and 0 of 848x480 (101,760 and 407,040
+    pixels) in all three modes."""
+    from beats3d_tpu_torch.ops import components
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    rng = np.random.default_rng(13)
+    flat = torch.as_tensor(kernel_bench.random_forest(rng, 64, 5, 33)).to(
+        cuda_dev)
+    forest_eval_cuda.evaluate_forest_cuda(bench.golden, flat)
+    forest_eval_cuda.forest_pdf_sum_cuda(bench.golden, flat)
+    m = _wide_model(cuda_dev, 6, 32, 33, 300)
+    m.run(bench.golden)
+    pipe = pl.FramePipeline(m, bench.intrin)
+    pipe(bench.frames[0], bench.plane)
+    depth1 = kernel_bench.grouping_depth(bench)[:2]
+    for level in (1, 0):
+        f = 1 << level
+        small = depth1[..., ::f, ::f]
+        components.label_components(small > 0)
+        components.make_hand_groups(small, 0.06)
+        components.hand_groups_grown(depth1, level, 0.06)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_multiblock_grouping_matches_plain(cuda_dev, bench):
+    """The multi-block grouping path against the plain versions in its
+    three modes: the 16 bench scenes' K2 output at levels 1 (240x424, one
+    launch for the batch and one for a frame) and 0 (480x848), a
+    serpentine of 240x424 (one component snaking over every tile row) and
+    random masks: equal bit for bit, the centroids of level 0 (whose sums
+    of x pass 2**24, where the plain float32 sums round) against the
+    exact sums (C-w15)."""
+    depth1 = kernel_bench.grouping_depth(bench)
+    pct = bench.pipe.gms
+    _grouping_modes(depth1, 1, pct)
+    _grouping_modes(depth1[3:4], 1, 0.06)
+    _grouping_modes(depth1[:2], 0, pct)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=cuda_dev)
+
+    _grouping_modes(dev(kernel_bench.serpentine(240, 424)[None]), 0, 0.001)
+    rng = np.random.default_rng(14)
+    for shape, frac in (((2, 240, 424), 0.6), ((1, 300, 250), 0.55)):
+        _grouping_modes(dev((rng.random(shape) < frac) * 7), 0, 0.0005)
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
+    """The live frame at depth_mm_level 1 (the multi-block grouping path in
+    the captured graph): replays equal the eager program, the graph's
+    launches per replay are K1 2, K2 1 and the multi-block path 1, and a
+    replay moves no count."""
+    from beats3d_tpu_torch.ops import components
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    cfg = pl.PipelineConfig(height=bench.intrin.height,
+                            width=bench.intrin.width, depth_mm_level=1)
+    pipe = pl.FramePipeline(bench.model, bench.intrin, cfg=cfg)
+    for i, depth in enumerate(bench.frames[:4]):
+        _assert_same(pipe(depth, bench.plane),
+                     pl.frame_step(pipe, depth, bench.plane), f"frame {i}")
+    graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
+    assert graph.launches == {
+        "evaluate_layered_cuda": 2, "plane_band_gauss_cuda": 1,
+        "hand_groups_grown": 0, "hand_groups_multiblock": 1}
+    before = components.hand_groups_multiblock.launches
+    pipe(bench.frames[5], bench.plane)
+    assert components.hand_groups_multiblock.launches == before
+
+
+@pytest.mark.cuda
+def test_pipeline_model_on_an_unindexed_device(cuda_dev):
+    """A model loaded onto device "cuda" (no index, as the apps load it):
+    FramePipeline builds K1's descriptors on its tables' card and runs."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+    from beats3d_tpu_torch.utils import CameraIntrinsics
+
+    m = LayeredDecisionForest.load(os.path.join(FLAGSHIP, "model_cfg.json"),
+                                   labels_reduce=2, device="cuda")
+    intrin = CameraIntrinsics.d415(212, 120)
+    pipe = pl.FramePipeline(m, intrin, cfg=pl.PipelineConfig(
+        height=120, width=212, crop_h=48, crop_w=64))
+    assert m.kernel_descs.device == m.layers[0].header.device
+    depth = np.full((120, 212), 2600, np.uint16)
+    plane = torch.eye(4, device=cuda_dev)
+    plane[2, 3] = -2600.0
+    out = pipe(depth, plane)
+    assert out["labels"].shape == (2, 60, 106)

@@ -19,7 +19,10 @@ import fixtures
 
 from beats3d_tpu.ops import components as jcomp
 from beats3d_tpu.ops import points as jpoints
+from beats3d_tpu_torch import kernel_bench
+from beats3d_tpu_torch.data.synth import articulated_scene, part_labels
 from beats3d_tpu_torch.ops import components, cuda_lib
+from beats3d_tpu_torch.utils import CameraIntrinsics
 
 
 def _serpentine(h=30, w=53):
@@ -122,6 +125,39 @@ def test_stage_matches_jax(rng, name, batch):
     assert got[1].shape == (3, 2, 3)
     for k in range(3):
         _assert_stage([t[k] for t in got], _jax_stage(stack[k], level, pct))
+
+
+def _past_one_block(name):
+    """(depth (H, W) int32, level, pct) of an image whose mipmap holds more
+    than BLOCK_PIXELS pixels (the card's multi-block path): a 480x848
+    two-hand scene at level 1 (240x424), or a 240x424 serpentine."""
+    if name == "two_hands_level1":
+        intrin = CameraIntrinsics.d415()
+        d, c = articulated_scene(intrin, np.random.default_rng(1000),
+                                 two_hands=True, flex_scale=0.3)
+        return np.where(part_labels(c) > 0, d, 0).astype(np.int32), 1, 0.06
+    return kernel_bench.serpentine(240, 424).astype(np.int32) * 3, 0, 0.001
+
+
+@pytest.mark.parametrize("name", ["two_hands_level1", "serpentine_240x424"])
+def test_stage_past_one_block_matches_jax(name):
+    """make_hand_groups and the stage on mipmaps of 240x424 (more than
+    BLOCK_PIXELS) against JAX's make_hand_groups and its composition.  Their
+    sums stay below 2**24 (ROADMAP C-w15), so every output is exact."""
+    depth, level, pct = _past_one_block(name)
+    small = depth[::1 << level, ::1 << level]
+    assert small.size > components.BLOCK_PIXELS
+    want = _jax_stage(depth, level, pct)
+    _assert_stage(components.hand_groups_grown(torch.as_tensor(depth), level,
+                                               pct), want)
+    groups, info = components.make_hand_groups(torch.as_tensor(small), pct)
+    np.testing.assert_array_equal(groups.numpy(), want[2])
+    np.testing.assert_array_equal(info.numpy().view(np.int32),
+                                  want[1].view(np.int32))
+    assert (want[1][:, 0] > 0).any()
+    _, biggest = kernel_bench.exact_centroids(
+        torch.as_tensor(small)[None], groups[None])
+    assert biggest < 2 ** 24
 
 
 def test_stage_traps_values(rng):

@@ -136,3 +136,24 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["MAX_TREES", "MAX_CLASSES", "MAX_LAYERS",
+                                  "MAX_CONDITIONS", "kernel_supports",
+                                  "MAX_PIXELS"])
+def test_no_size_cap_left_in_the_port(name):
+    """The caps the kernels once put on trees, classes, layers, condition
+    rows and mipmap pixels are gone from the port's sources, its apps and
+    chip_smoke.py."""
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
+    paths += [os.path.join(ROOT, "apps", f)
+              for f in os.listdir(os.path.join(ROOT, "apps"))
+              if f.endswith("_torch.py")]
+    paths.append(os.path.join(ROOT, "chip_smoke.py"))
+    hits = []
+    for p in paths:
+        with open(p, encoding="utf-8") as fh:
+            if re.search(rf"\b{name}\b", fh.read()):
+                hits.append(os.path.relpath(p, ROOT))
+    assert not hits, hits
