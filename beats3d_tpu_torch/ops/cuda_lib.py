@@ -195,6 +195,19 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptrs + [i] * n_ints + [vp]
         fn.restype = i
+    # the frame programs' conditional graph nodes (runtime/graph_cond.py)
+    lib.b3d_cond_begin.argtypes = [vp, vp, vp, ctypes.POINTER(vp)]
+    lib.b3d_cond_begin.restype = i
+    lib.b3d_capture_to_graph.argtypes = [vp, vp]
+    lib.b3d_capture_to_graph.restype = i
+    lib.b3d_capture_end.argtypes = [vp]
+    lib.b3d_capture_end.restype = i
+    lib.b3d_cuda_versions.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.b3d_cuda_versions.restype = i
+    lib.b3d_stream_create.argtypes = [ctypes.POINTER(vp)]
+    lib.b3d_stream_create.restype = i
+    lib.b3d_stream_destroy.argtypes = [vp]
+    lib.b3d_stream_destroy.restype = i
     lib.b3d_error_string.argtypes = [i]
     lib.b3d_error_string.restype = ctypes.c_char_p
     return lib

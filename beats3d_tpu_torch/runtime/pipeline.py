@@ -16,14 +16,14 @@ One depth frame in, fingertip heights out:
 
 The tap-detection state machine and MIDI stay on the host (runtime.app).
 
-The frame programs (:func:`frame_step`, and for the batched call
-``_batched_crop_program`` / ``_batched_full_program``) read nothing back to
-the host: crop origins, the crop-or-full choice, the budgeted rescue and
-the grouping stage all stay on the device.  On CUDA, FramePipeline
-captures each program once per input shape as a CUDA graph and replays it
-(the counterpart of ``jax.jit``); the batched call makes one 4-byte read,
-whether to run every frame full-frame.  ``vmap`` becomes an explicit batch
-dimension.
+The frame programs (:func:`frame_step`, :func:`frame_step_batched`) read
+nothing back to the host: crop origins, the crop-or-full choice, the
+budgeted rescue and the grouping stage all stay on the device.  Each
+``lax.cond`` of JAX's programs is a :func:`graph_cond.cond`: on CUDA,
+FramePipeline captures each program once per input shape as a CUDA graph
+(the counterpart of ``jax.jit``) whose conds are conditional nodes, so a
+replay runs only the branch taken; eagerly both run and the result is
+selected.  ``vmap`` becomes an explicit batch dimension.
 
 Depth is carried as int32 inside (PyTorch's uint16 support is thin); the
 outputs keep the JAX program's dtypes.  The backend follows the model's
@@ -42,8 +42,15 @@ import torch.nn.functional as F
 
 from ..models.layered import LayeredDecisionForest, run_layered
 from ..ops import components, forest_eval_cuda, meanshift, points, preproc_cuda
+from . import graph_cond
+from .graph_cond import cond
 
 MAX_UINT16 = 65535
+# JAX's pipeline guards only where its TPU path runs the Pallas kernel, which
+# takes a model of at most 128 condition rows (its
+# LayeredDecisionForest.pallas_supported); a wider model runs the XLA
+# evaluator there, unguarded.
+GUARD_CONDITION_ROWS = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +74,17 @@ class PipelineConfig:
     # when >= the frame dims.
     crop_h: int = 448
     crop_w: int = 512
-    # Incoherence guard (kernel backend only): a hand image with more than
-    # guard_tile_frac of its occupied 8x128 label tiles spread over more
-    # than guard_spread depth units is zeroed before the eval (labels
-    # 65535, means NaN, tips invalid; flagged in guard_muted) — the JAX
-    # package's guard_mode="skip".  guard_spread <= 0 disables the guard.
+    # Incoherence guard (kernel backend only, where JAX's TPU path guards:
+    # see guards()): a hand image with more than guard_tile_frac of its
+    # occupied 8x128 label tiles spread over more than guard_spread depth
+    # units is zeroed before the eval (labels 65535, means NaN, tips
+    # invalid; flagged in guard_muted) under guard_mode "skip".  Under
+    # "xla" nothing is zeroed: JAX then chooses between two exact
+    # evaluators, and K1 is exact and insensitive to the spread, so both
+    # are its one launch.  guard_spread <= 0 disables the guard.
     guard_spread: int = 1500
     guard_tile_frac: float = 0.25
+    guard_mode: str = "skip"
     # Batched path: up to fallback_budget frames whose hand exceeds the
     # crop window are re-evaluated full-frame while the rest stay on the
     # crop path; with more, the whole batch runs full-frame.  0 disables
@@ -227,9 +238,18 @@ def _crop_origins(grown, cfg, h, w):
     return origin(ylo, yhi, ch, h), origin(xlo, xhi, cw, w), too_big
 
 
+def guards(cfg: PipelineConfig, model: LayeredDecisionForest) -> bool:
+    """Whether the kernel backend zeroes incoherent hand images, as JAX's
+    TPU path does: the guard on, in mode "skip", on a model of at most
+    GUARD_CONDITION_ROWS condition rows."""
+    return (cfg.guard_spread > 0 and cfg.guard_mode == "skip"
+            and model.conditions_np.shape[0] <= GUARD_CONDITION_ROWS)
+
+
 def _eval_layers(depth_imgs, pipe, cfg, scale):
-    """Layered eval of an (N, H, W) hand stack with the incoherence guard.
-    Returns (labels (N, H//r, W//r) int32, guard_muted (N,) bool)."""
+    """Layered eval of an (N, H, W) hand stack with the incoherence guard
+    where ``pipe.guarded``.  Returns (labels (N, H//r, W//r) int32,
+    guard_muted (N,) bool)."""
     r = cfg.labels_reduce
     noflags = torch.zeros(depth_imgs.shape[0], dtype=torch.bool,
                           device=depth_imgs.device)
@@ -237,7 +257,7 @@ def _eval_layers(depth_imgs, pipe, cfg, scale):
     def fast(d):
         return run_layered(d, pipe.model, labels_reduce=r, scale_factor=scale)
 
-    if pipe.backend != "cuda" or cfg.guard_spread <= 0:
+    if not pipe.guarded:
         return fast(depth_imgs), noflags
     flags = _incoherent_images(depth_imgs, r, cfg)
     safe = torch.where(flags[:, None, None], 0, depth_imgs)
@@ -308,17 +328,18 @@ def _full_path(pipe, depth1, grown, keep=None):
     return labels, _run_ms(labels, pipe), gf.reshape(b, 2)
 
 
-def _crop_path(pipe, depth1, grown, oys, oxs, too_big):
+def _crop_path(pipe, depth1, grown, oys, oxs, too_big=None):
     """Crop eval of (B, H, W) frames at device-side origins; frames whose
-    hand exceeds the crop window get zeroed crops (K1 skips them; the
-    caller takes their results from the full path).  Mean shift runs on
-    the crops; a mirrored image yields the exactly mirrored mode."""
+    ``too_big`` is set get zeroed crops (K1 skips them; the caller takes
+    their results from the full path).  Mean shift runs on the crops; a
+    mirrored image yields the exactly mirrored mode."""
     cfg = pipe.cfg
     b, h, w = depth1.shape
     r = cfg.labels_reduce
     ch, cw = cfg.crop_h, cfg.crop_w
     crops = _stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
-    crops = torch.where(too_big[:, None, None, None], 0, crops)
+    if too_big is not None:
+        crops = torch.where(too_big[:, None, None, None], 0, crops)
     lc, gf = _eval_layers(crops.reshape(2 * b, ch, cw), pipe, cfg,
                           _scale(w, cfg))
     lc = lc.reshape(b, 2, ch // r, cw // r)
@@ -347,9 +368,8 @@ def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
     nothing back to the host; on CUDA ``FramePipeline.__call__`` replays it
     from a CUDA graph.
 
-    The crop-or-full choice (JAX's ``lax.cond``) runs both branches and
-    selects on the device: the branch not taken gets zeroed input, so K1
-    skips its pixels.
+    The crop-or-full choice is JAX's ``lax.cond`` on ``too_big``: the
+    graph runs one branch, this eager program both, selecting the result.
 
     Returns a dict of tensors:
       labels (2, H//r, W//r) uint16 — per-hand composite labels, screen frame
@@ -365,88 +385,92 @@ def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
     h, w = raw_depth.shape
     raw = raw_depth[None]
     depth1, grown, g_info, groups_small = _front(pipe, raw, plane_mat)
+
+    def full():
+        return _full_path(pipe, depth1, grown)
+
     if not _use_crop(cfg, h, w):
-        res = _full_path(pipe, depth1, grown)
+        res = full()
     else:
         oys, oxs, too_big = _crop_origins(grown, cfg, h, w)
-        cropped = _crop_path(pipe, depth1, grown, oys, oxs, too_big)
-        full = _full_path(pipe, depth1, grown, keep=too_big)
-        res = [torch.where(too_big.view((1,) * c.dim()), f, c)
-               for f, c in zip(full, cropped)]
+
+        def crop():
+            return _crop_path(pipe, depth1, grown, oys, oxs)
+
+        res = cond(too_big[0], full, crop)
     out = _outputs(pipe, raw, plane_mat, *res, g_info)
     out = {k: v[0] for k, v in out.items()}
     out["groups_small"] = groups_small[0].to(torch.uint16)
     return out
 
 
-def _batched_crop_program(pipe: "FramePipeline", raw_depth, plane_mat):
-    """The batched call's crop program (JAX's ``crop_then_rescue``): every
-    frame on the crop path, then the frames whose hand exceeds the crop
-    window, up to the static budget fb, re-evaluated full-frame and written
-    back under the ``upd`` mask, all on the device.  Returns frame_step's
-    dict with a leading batch axis (minus groups_small) plus ``nbad``, the
-    () int32 count of oversized frames: when it exceeds fb, the caller runs
-    :func:`_batched_full_program` instead."""
+def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
+    """Many frames -> fingertips, the eager batched program: the throughput
+    path.  raw_depth (B, H, W) int32 with one shared (4, 4) plane.  Like
+    :func:`frame_step` it reads nothing back; on CUDA ``FramePipeline.batch``
+    replays it from one CUDA graph.
+
+    JAX's ``frame_step_batched``, cond for cond: the front (K2, grouping,
+    crop origins) runs once; then, with nbad frames whose hand exceeds the
+    crop window and the budget fb = min(fallback_budget, B), either every
+    frame on the crop path (all 2B hand crops in one layered-eval launch,
+    mean shift on the crops) followed, when nbad > 0, by the oversized
+    frames (up to fb) re-evaluated full-frame in a second launch; or, when
+    nbad > fb, every frame full-frame.  Returns frame_step's dict with a
+    leading batch axis (minus groups_small).
+    """
     cfg = pipe.cfg
     b, h, w = raw_depth.shape
     depth1, grown, g_info, _ = _front(pipe, raw_depth, plane_mat)
-    oys, oxs, too_big = _crop_origins(grown, cfg, h, w)
-    labels, means, gmut = _crop_path(pipe, depth1, grown, oys, oxs, too_big)
-    fb = min(cfg.fallback_budget, b)
-    if fb > 0:
-        ar = torch.arange(b, device=raw_depth.device)
-        idx = torch.argsort(torch.where(too_big, ar, b + ar))[:fb]
-        upd = too_big[idx]              # padding rows (clean frames): no-ops
-        rescued = _full_path(pipe, depth1[idx], grown[idx], keep=upd)
-        labels, means, gmut = [
-            c.index_copy(0, idx, torch.where(
-                upd.view((-1,) + (1,) * (c.dim() - 1)), r, c[idx]))
-            for r, c in zip(rescued, (labels, means, gmut))]
-    out = _outputs(pipe, raw_depth, plane_mat, labels, means, gmut, g_info)
-    out["nbad"] = too_big.sum(dtype=torch.int32)
-    return out
 
+    def full():
+        return _full_path(pipe, depth1, grown)
 
-def _batched_full_program(pipe: "FramePipeline", raw_depth, plane_mat):
-    """The batched call with every frame full-frame (JAX's ``full_path``)."""
-    depth1, grown, g_info, _ = _front(pipe, raw_depth, plane_mat)
-    return _outputs(pipe, raw_depth, plane_mat,
-                    *_full_path(pipe, depth1, grown), g_info)
+    if not _use_crop(cfg, h, w):
+        res = full()
+    else:
+        oys, oxs, too_big = _crop_origins(grown, cfg, h, w)
+        nbad = too_big.sum(dtype=torch.int32)
+        fb = min(cfg.fallback_budget, b)
 
+        def crop():
+            return _crop_path(pipe, depth1, grown, oys, oxs, too_big)
 
-def _batched(pipe, shape, run):
-    """The batched call's policy (JAX's ``lax.cond`` over nbad against the
-    static budget fb): the crop program, then the all-full-frame program
-    when more than fb frames exceed the crop window.  ``run(program)`` runs
-    a program on the call's inputs (eagerly, or by replaying its graph);
-    the count ``nbad`` is the call's one host read, 4 bytes, made after the
-    crop program is queued."""
-    b, h, w = shape
-    if not _use_crop(pipe.cfg, h, w):
-        return run(_batched_full_program)
-    out = run(_batched_crop_program)
-    if out.pop("nbad").item() > min(pipe.cfg.fallback_budget, b):
-        out = run(_batched_full_program)
-    return out
+        if fb == 0:
+            res = cond(nbad > 0, full, crop)
+        else:
+            # the oversized frames first; padding rows (clean frames, when
+            # nbad < fb) are zeroed for K1 and dropped by the upd mask
+            ar = torch.arange(b, device=raw_depth.device)
+            idx = torch.argsort(torch.where(too_big, ar, b + ar))[:fb]
+            upd = too_big[idx]
 
+            def rescue():
+                return _full_path(pipe, depth1[idx], grown[idx], keep=upd)
 
-def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
-    """Many frames -> fingertips, the eager batched program: the throughput
-    path.  raw_depth (B, H, W) int32 with one shared (4, 4) plane.
+            def none_oversized():
+                # placeholders the all-false upd mask drops
+                r = cfg.labels_reduce
+                dev = raw_depth.device
+                return (torch.zeros(fb, 2, h // r, w // r, dtype=torch.int32,
+                                    device=dev),
+                        torch.zeros(fb, 2, pipe.num_classes, 2, device=dev),
+                        torch.zeros(fb, 2, dtype=torch.bool, device=dev))
 
-    All 2B hand crops run through one layered-eval launch, and mean shift
-    runs on the crops.  Up to cfg.fallback_budget frames whose hand exceeds
-    the crop window are rescued full-frame in a second launch; with more,
-    the whole batch runs full-frame, decided by one 4-byte read after the
-    crop program is queued.  Returns frame_step's dict with a leading batch
-    axis (minus groups_small).
-    """
-    return _batched(pipe, raw_depth.shape,
-                    lambda program: program(pipe, raw_depth, plane_mat))
+            def crop_then_rescue():
+                cropped = crop()
+                rescued = cond(nbad > 0, rescue, none_oversized)
+                return tuple(
+                    c.index_copy(0, idx, torch.where(
+                        upd.view((-1,) + (1,) * (c.dim() - 1)), r, c[idx]))
+                    for r, c in zip(rescued, cropped))
+
+            res = cond(nbad <= fb, crop_then_rescue, full)
+    return _outputs(pipe, raw_depth, plane_mat, *res, g_info)
 
 
 # The wrappers of the kernels the frame programs launch: a FrameGraph reads
-# their launch counts around its capture to learn its launches per replay.
+# their launch counts around its capture to learn its launches per body.
 FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
                  preproc_cuda.plane_band_gauss_cuda,
                  components.hand_groups_grown,
@@ -455,18 +479,21 @@ FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
 
 class FrameGraph:
     """One frame program captured as a CUDA graph for one input shape and
-    replayed per call: the counterpart of ``jax.jit`` over the frame.
+    replayed per call: the counterpart of ``jax.jit`` over the frame, its
+    conds conditional nodes (:mod:`graph_cond`).
 
     ``depth`` and ``plane`` are the static inputs the caller writes before
     each replay (graphs of one shape share them); the pipeline's ``gms``
     scalar is read in place.  The program is warmed up once on a side
     stream, with synchronising calls made errors
     (``torch.cuda.set_sync_debug_mode``), then captured; a failed capture
-    raises.  The kernel wrappers count the warm-up's launches and the
-    capture's (each records its launch into the graph); a replay goes
-    through no wrapper, so it moves no count.  ``launches``: the graph's
-    kernel launches per replay, by wrapper name; ``replays``: the replays
-    so far.
+    raises.  The kernel wrappers count the warm-up's launches (every body
+    of every cond) and the capture's (each records its launch into the
+    graph); a replay goes through no wrapper, so it moves no count.
+
+    ``launches``: the wrappers' launches per replay of each body, by body
+    (``""`` outside every cond) and wrapper name; ``replays``: the replays
+    so far; :meth:`body_replays` reads each body's replays from the card.
     """
 
     def __init__(self, pipe, program, depth, plane):
@@ -481,12 +508,14 @@ class FrameGraph:
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = [k.launches for k in FRAME_KERNELS]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with graph_cond.graph(self.graph, FRAME_KERNELS,
+                              capture_error_mode="thread_local") as capture:
             self.out = program(pipe, depth, plane)
-        self.launches = {k.__name__: k.launches - n
-                         for k, n in zip(FRAME_KERNELS, before)}
+        self.launches = capture.launches
+        self.pool = capture.pool            # the graph's memory
+        self._bodies = capture.bodies
+        self._taken = capture.taken
         self.replays = 0
 
     def replay(self):
@@ -495,6 +524,16 @@ class FrameGraph:
         self.graph.replay()
         self.replays += 1
         return {k: v.clone() for k, v in self.out.items()}
+
+    def body_replays(self):
+        """{body: replays so far} (a host read of the card's counters, for
+        checks: the wrappers' launches the replays made are
+        ``sum(body_replays()[b] * launches[b][name] for b in launches)``)."""
+        taken = self._taken.tolist()
+        out = {"": self.replays}
+        out.update({b: taken[c][branch]
+                    for b, (c, branch) in self._bodies.items()})
+        return out
 
 
 class FramePipeline:
@@ -518,6 +557,9 @@ class FramePipeline:
         self.cfg = cfg or PipelineConfig(
             height=intrinsics.height, width=intrinsics.width)
         self.backend = "cuda" if self.device.type == "cuda" else "torch"
+        self.guarded = self.backend == "cuda" and guards(self.cfg, model)
+        if self.backend == "cuda":
+            graph_cond.require_support(self.device)
         if self.backend == "cuda" and model.kernel_descs is None:
             # K1's layer descriptors, copied to the card now rather than in
             # a frame graph's warm-up (on the tables' device: the model's
@@ -606,8 +648,7 @@ class FramePipeline:
         depth, plane = self.as_depth(raw_depths), self._plane(plane_mat)
         if self.device.type != "cuda":
             return frame_step_batched(self, depth, plane)
-        return _batched(self, depth.shape,
-                        lambda program: self._replay(program, depth, plane))
+        return self._replay(frame_step_batched, depth, plane)
 
     def batch_sharded(self, raw_depths, plane_mat, mesh, axis: str = "data"):
         """The throughput path on a mesh of ranks: frames sharded over

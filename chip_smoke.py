@@ -210,6 +210,7 @@ WIDE_FORESTS = ((17, 7), (32, 7), (64, 7), (17, 17), (17, 33))
 WIDE_CONDITION_ROWS = (129, 300)
 WIDE_PIPE_LEVELS = 6             # the pipeline's wide model: shallower, as
 WIDE_TICKS, WIDE_CPU_FRAMES = 16, 4   # the CPU's plain walk compares it
+GUARD_SEED = 12                  # the noise of the guard's hands
 LEVEL1_TICKS = 16                # BeatsApp at depth_mm_level 1
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
 # source, the pallas_call it replaces, operations per element of x per count
@@ -377,27 +378,55 @@ def counts():
     return tuple(k.launches for k in (K1, K2, GK))
 
 
+def body_launches(frame_graph, kernel):
+    """``kernel``'s launches over every body of a FrameGraph (the graph
+    outside its conds and each cond's branches): what its warm-up, which
+    runs both branches of every cond, and its capture each make."""
+    return sum(b[kernel.__name__] for b in frame_graph.launches.values())
+
+
 def captured_launches(pipe):
     """The (K1, K2, grouping) launches ``pipe``'s graphs made through the
-    wrappers: each graph's warm-up and its capture, so twice its launches
-    per replay."""
-    return tuple(sum(2 * g.launches[k.__name__] for g in pipe.graphs.values())
+    wrappers: each graph's warm-up and its capture."""
+    return tuple(sum(2 * body_launches(g, k) for g in pipe.graphs.values())
                  for k in (K1, K2, GK))
 
 
+def body_replays(pipe):
+    """{(program, shape): {body: replays so far}} of ``pipe``'s graphs, from
+    the card's counters (``FrameGraph.body_replays``, a host read)."""
+    return {key: g.body_replays() for key, g in pipe.graphs.items()}
+
+
+def replayed_launches(pipe, before, after):
+    """{kernel wrapper name: launches} that ``pipe``'s graphs' replays made
+    between two :func:`body_replays` readings: each body's replays times
+    its launches."""
+    out = {k.__name__: 0 for k in pl.FRAME_KERNELS}
+    for key, g in pipe.graphs.items():
+        for body, n in after[key].items():
+            n -= before.get(key, {}).get(body, 0)
+            for name in out:
+                out[name] += n * g.launches[body][name]
+    return out
+
+
 def pool_mb(frame_graph):
-    """MB of device memory held by the segments of a FrameGraph's private
-    pool, from the caching allocator's snapshot."""
-    pool = tuple(frame_graph.graph.pool())
+    """MB of device memory held by the segments of a FrameGraph's pools
+    (the graph's own and its capture's, which holds the conds' bodies'),
+    from the caching allocator's snapshot."""
+    pools = (tuple(frame_graph.graph.pool()), tuple(frame_graph.pool.id))
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-               if tuple(s["segment_pool_id"]) == pool) / 2 ** 20
+               if tuple(s["segment_pool_id"]) in pools) / 2 ** 20
 
 
 def graph_table(pipe):
-    """Per captured (program, shape): replays, launches per replay and the
-    pool's MB."""
+    """Per captured (program, shape): replays, each body's replays, launches
+    per replay of each body (``""``: outside every cond) and the pools'
+    MB."""
     return {f"{name} {list(shape)}": dict(
-        replays=g.replays, launches_per_replay=g.launches, pool_mb=pool_mb(g))
+        replays=g.replays, body_replays=g.body_replays(),
+        launches_per_body_replay=g.launches, pool_mb=pool_mb(g))
         for (name, shape), g in pipe.graphs.items()}
 
 
@@ -456,11 +485,12 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     ``CALL_RANGE`` range, after one warm-up call that the profiler traces
     and drops (the schedule's warm-up step: without it a window's first
     kernel record could go missing).  Returns the window's device profile,
-    host traffic, wall ms per call, graph replays, and per frame kernel
-    the launches traced by name, which must equal the sum over ``pipe``'s
-    graphs of the replays in the window times the graph's launches per
-    replay.  The wrappers' counts must not move: a replay goes through no
-    wrapper, and nothing else may launch a frame kernel.  ``kernels``:
+    host traffic, wall ms per call, graph replays, each cond body's replays
+    per call, and per frame kernel the launches traced by name, which must
+    equal the launches the window's replays made: over ``pipe``'s graphs,
+    each body's replays on the card times its launches.  The wrappers'
+    counts must not move: a replay goes through no wrapper, and nothing
+    else may launch a frame kernel.  ``kernels``:
     (key, wrapper, traced name) of the frame kernels to hold; ``count``:
     name parts whose kernels' launches and device ms per call are reported
     as well."""
@@ -470,6 +500,8 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
         run()
         torch.cuda.synchronize()
+        # read in the dropped warm-up step: the window holds no host read
+        bodies = body_replays(pipe)
         prof.step()
         before = counts() + (MB.launches,)
         replays = {key: g.replays for key, g in pipe.graphs.items()}
@@ -490,6 +522,12 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     if counts() + (MB.launches,) != before:
         raise AssertionError(f"a wrapper launched in the window: "
                              f"{before} -> {counts() + (MB.launches,)}")
+    after = body_replays(pipe)
+    replayed = replayed_launches(pipe, bodies, after)
+    res["body_replays_per_call"] = {
+        f"{name} {list(shape)}": {b: (n - bodies.get((name, shape), {}).get(
+            b, 0)) / calls for b, n in got.items() if b}
+        for (name, shape), got in after.items()}
     for needle in count:
         n, ms = kernel_device_ms(prof, needle)
         res[needle] = dict(launches_per_call=n / calls,
@@ -497,8 +535,7 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     res["traced"] = {}
     for name, kernel, needle in kernels:
         n, ms = kernel_device_ms(prof, needle)
-        want = sum((g.replays - replays.get(key, 0)) * g.launches[
-            kernel.__name__] for key, g in pipe.graphs.items())
+        want = replayed[kernel.__name__]
         res[name] = dict(launches_per_call=n / calls,
                          replayed_per_call=want / calls,
                          device_ms_per_launch=ms)
@@ -528,9 +565,10 @@ def phase_main_path(inp, smi):
     call, each a replayed CUDA graph: host ms per call (the median and
     spread of APP_FRAMES ticks of each mode after a warm tick, and of 5
     batched calls), then a torch.profiler window of each for device
-    operations, device ms, idle share, graph replays, K1/K2/grouping
-    launches, host syncs and copies.  Returns the launches traced in the
-    windows (K1, K2, grouping) and the wrappers' counts over the run."""
+    operations, device ms, idle share, graph replays, the cond bodies
+    replayed, K1/K2/grouping launches, host syncs and copies (a live tick:
+    0 syncs and 1 device-to-host copy; a batched call: 0 and 0, 1 replay).
+    Returns the launches traced in the windows (K1, K2, grouping)."""
     model, frames, plane = inp.model, inp.frames, inp.plane
     source = SyntheticSource(inp.intrin)
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
@@ -589,8 +627,10 @@ def phase_main_path(inp, smi):
         if (w["host_syncs_per_call"] != 0 or w["copies_DtoH_per_call"] != 1
                 or w["graph_replays_per_call"] != 1):
             raise AssertionError(f"{name}: {w}")
+    # the batched call reads nothing back: its conds run on the card
     w = windows["batched"]
-    if w["copies_DtoH_per_call"] != 1 or w["host_syncs_per_call"] > 1:
+    if (w["copies_DtoH_per_call"] != 0 or w["host_syncs_per_call"] != 0
+            or w["graph_replays_per_call"] != 1):
         raise AssertionError(f"batched: {w}")
     # every launch of the run's wrappers was a graph's warm-up or capture
     if (min(wrapper) < 1 or wrapper != captured_launches(app.pipeline)
@@ -613,12 +653,16 @@ def phase_main_path(inp, smi):
     app_valid = sum(int(o["tip_valid"].sum()) for o in outs)
     if n_valid == 0 or app_valid == 0:
         raise AssertionError("no valid fingertip")
+    # K1 traced per call, by the branches the window's replays took
+    k1_by_branch = {name: dict(
+        k1_per_call=w["k1"]["launches_per_call"],
+        branches=w["body_replays_per_call"]) for name, w in windows.items()}
     say("main_path", card=smi, frames=processed, ticks=ticks,
         calibration_capture_and_first_frame_s=round(t_cal, 4),
         ms_per_tick=ms_tick, batch=BATCH, ms_per_batched_call=ms_batch,
         fps_batched=BATCH * 1e3 / ms_batch["median"],
         k1_launches_traced=traced[0], k2_launches_traced=traced[1],
-        grouping_launches_traced=traced[2],
+        grouping_launches_traced=traced[2], k1_by_branch=k1_by_branch,
         wrapper_launches=dict(zip(FRAME_KERNEL_KEYS, wrapper)),
         profiled=windows, graphs=graph_table(app.pipeline),
         hands_per_frame=hands.tolist(), valid_tips_batch=n_valid,
@@ -664,39 +708,164 @@ def same_outputs(got, want):
     return [k for k in want if differ(got[k], want[k])]
 
 
+def taken_bodies(frame_graph, call):
+    """call(), then the cond bodies of ``frame_graph`` that its replay ran
+    (from the card's counters)."""
+    before = frame_graph.body_replays()
+    out = call()
+    after = frame_graph.body_replays()
+    return out, sorted(b for b in after if b and after[b] != before[b])
+
+
+# the branches JAX's lax.conds take: the live frame's, and the batched
+# call's by its count of oversized frames (fallback_budget 2)
+LIVE_BRANCH = {False: ["crop"], True: ["full"]}
+BATCH_BRANCHES = {0: ["crop_then_rescue", "crop_then_rescue/none_oversized"],
+                  1: ["crop_then_rescue", "crop_then_rescue/rescue"],
+                  3: ["full"]}
+
+
 def phase_graph_vs_eager(inp, smi):
     """FramePipeline's replayed graphs against the eager programs bit for
     bit: the 16 scenes and an oversized-hand frame one by one, and batches
-    with nbad = 0, 1 and 3 (3 > fallback_budget: the all-full-frame
-    program after the one read)."""
+    with nbad = 0, 1 and 3 (3 > fallback_budget: every frame full-frame).
+    Each replay must run the branches JAX's conds take (the card's body
+    counters: the crop branch on the scenes, the full-frame branch on the
+    oversized frame; the budgeted rescue only when nbad > 0), and the 16
+    scenes again under torch.profiler must trace K1 once per frame."""
     pipe = pl.FramePipeline(inp.model, inp.intrin)
     big = pipe.as_depth(kb.oversized(inp.scenes[1], inp.intrin))
     frames = list(inp.frames) + [big]
-    diffs = {}
+    diffs, branches = {}, {}
+    pipe(frames[0], inp.plane)                  # capture
+    live = pipe.graphs[("frame_step", tuple(big.shape))]
     for i, depth in enumerate(frames):
-        d = same_outputs(pipe(depth, inp.plane),
-                         pl.frame_step(pipe, depth, inp.plane))
+        got, taken = taken_bodies(live, lambda: pipe(depth, inp.plane))
+        d = same_outputs(got, pl.frame_step(pipe, depth, inp.plane))
+        branches[i] = taken
         if d:
             diffs[f"frame {i}"] = d
+        if taken != LIVE_BRANCH[i == len(frames) - 1]:
+            diffs[f"frame {i} branch"] = taken
     batched = {}
     for bad in ((), (1,), (1, 4, 9)):
         batch = inp.frames.clone()
         for i in bad:
             batch[i] = pipe.as_depth(kb.oversized(inp.scenes[i], inp.intrin))
-        got = pipe.batch(batch, inp.plane)
+        pipe.batch(batch, inp.plane)            # capture on first use
+        graph = pipe.graphs[("frame_step_batched", tuple(batch.shape))]
+        got, taken = taken_bodies(graph, lambda: pipe.batch(batch, inp.plane))
         d = same_outputs(got, pl.frame_step_batched(pipe, batch, inp.plane))
-        batched[len(bad)] = dict(differing=d, tips_valid=int(
+        batched[len(bad)] = dict(differing=d, branches=taken, tips_valid=int(
             got["tip_valid"].sum()))
-        if d:
-            diffs[f"batch nbad={len(bad)}"] = d
-    too_big = bool(pl._crop_origins(
-        pl._front(pipe, big[None], inp.plane)[1], pipe.cfg, *big.shape)[2][0])
-    say("graph_vs_eager", card=smi, frames=len(frames),
-        oversized_frame_too_big=too_big, batched=batched,
+        if d or taken != BATCH_BRANCHES[len(bad)]:
+            diffs[f"batch nbad={len(bad)}"] = dict(differing=d, branches=taken)
+    scenes = iter(inp.frames)
+    window = profiled(lambda: pipe(next(scenes), inp.plane), BATCH - 1, pipe)
+    if (window["k1"]["launches_per_call"] != 1
+            or window["body_replays_per_call"][
+                f"frame_step {list(big.shape)}"] != {"crop": 1, "full": 0}):
+        diffs["the 16 scenes profiled"] = window["traced"]
+    say("graph_vs_eager", card=smi, frames=len(frames), live_branches=branches,
+        batched=batched, k1_per_scene_traced=window["k1"]["launches_per_call"],
         graphs=graph_table(pipe), replays=pipe.replays, differing=diffs)
-    if diffs or not too_big:
-        raise AssertionError(f"graph replay vs eager: {diffs}, too_big "
-                             f"{too_big}")
+    if diffs:
+        raise AssertionError(f"graph replay vs eager: {diffs}")
+
+
+def noise_hand_frames(inp):
+    """Scene 1 with incoherent hands, from GUARD_SEED: its right hand's
+    pixels (the grown group at full resolution) raised by noise (it fits
+    the crop window), and the oversized frame's blob made of noise (the
+    full-frame branch).  The noise is 0-600 mm per 8x8-pixel block, which
+    the 5x5 gaussian keeps; both stay above the table, so grouping keeps
+    them."""
+    rng = np.random.default_rng(GUARD_SEED)
+    f = 1 << inp.pipe.cfg.depth_mm_level
+    scene = inp.scenes[1]
+    h, w = scene.shape
+    depth = inp.pipe.as_depth(scene)
+    grown = pl._front(inp.pipe, depth[None], inp.plane)[1][0].cpu().numpy()
+    hand = grown.repeat(f, 0).repeat(f, 1)[:h, :w]
+    noise = rng.integers(0, 6000, (h // 8 + 1, w // 8 + 1)).repeat(
+        8, 0).repeat(8, 1)[:h, :w]
+    big = kb.oversized(scene, inp.intrin)
+    out = []
+    for frame, m in ((scene.copy(), hand == 1), (big, big != scene)):
+        frame[m] = (frame[m].astype(np.int64) - noise[m]).clip(1)
+        out.append(frame)
+    return np.stack(out)
+
+
+def phase_guard(inp, smi):
+    """The incoherence guard where JAX's TPU path applies it: two noise-hand
+    frames (noise_hand_frames; the crop and the full-frame branch) through
+    the flagship with guard_mode "skip" (the noised hand muted: guard_muted
+    set, its labels all 65535) and "xla" (nothing muted: outputs equal to the
+    unguarded pipeline's bit for bit, labels to the CPU's plain pipeline);
+    and the 5-layer wide model of 129 condition rows with the default
+    config, which JAX's TPU path does not guard: nothing muted, labels
+    equal to the CPU's on the crop-branch frame."""
+    frames = noise_hand_frames(inp)
+    cfg = inp.pipe.cfg
+    cpu = pl.FramePipeline(LayeredDecisionForest.load(
+        os.path.join(FLAGSHIP, "model_cfg.json"), labels_reduce=2,
+        device="cpu"), inp.intrin)
+    skip = pl.FramePipeline(inp.model, inp.intrin)
+    xla = pl.FramePipeline(inp.model, inp.intrin, cfg=dataclasses.replace(
+        cfg, guard_mode="xla"))
+    off = pl.FramePipeline(inp.model, inp.intrin, cfg=dataclasses.replace(
+        cfg, guard_spread=0))
+    wide = pl.FramePipeline(wide_model(inp.plane.device, 129,
+                                       WIDE_PIPE_LEVELS), inp.intrin)
+    wide_cpu = pl.FramePipeline(wide_model("cpu", 129, WIDE_PIPE_LEVELS),
+                                inp.intrin)
+    res, failures = {}, []
+    for i, frame in enumerate(frames):
+        branch = ("crop", "full")[i]
+        live = skip.graphs.get(("frame_step", frame.shape))
+        if live is None:
+            skip(frame, inp.plane)
+            live = skip.graphs[("frame_step", frame.shape)]
+        s_out, taken = taken_bodies(live, lambda: skip(frame, inp.plane))
+        x_out, o_out = xla(frame, inp.plane), off(frame, inp.plane)
+        c_out = cpu(frame, inp.plane.cpu())
+        muted = s_out["guard_muted"].cpu().tolist()
+        res[branch] = dict(
+            branch_taken=taken, skip_guard_muted=muted,
+            skip_muted_hands_labels_all_65535=all(
+                bool((s_out["labels"][h] == 65535).all())
+                for h in range(2) if muted[h]),
+            xla_guard_muted=x_out["guard_muted"].cpu().tolist(),
+            xla_vs_unguarded_differing=same_outputs(x_out, o_out),
+            xla_vs_cpu_label_mismatches=differ(x_out["labels"].cpu(),
+                                               c_out["labels"]),
+            hands_found=(s_out["g_info"][:, 0] > 0).cpu().tolist())
+        r = res[branch]
+        # the noised right hand of the crop frame; the blob, whichever
+        # hand it is, of the full-frame one
+        noised = (muted[0] and r["hands_found"][0]) if i == 0 else any(muted)
+        if (taken != [branch] or not noised
+                or not r["skip_muted_hands_labels_all_65535"]
+                or any(r["xla_guard_muted"]) or r["xla_vs_unguarded_differing"]
+                or r["xla_vs_cpu_label_mismatches"]):
+            failures.append(branch)
+    w_out = wide(frames[0], inp.plane)
+    w_cpu = wide_cpu(frames[0], inp.plane.cpu())
+    res["wide_129_rows"] = dict(
+        guarded=wide.guarded, guard_muted=w_out["guard_muted"].cpu().tolist(),
+        label_mismatches_vs_cpu=differ(w_out["labels"].cpu(), w_cpu["labels"]),
+        labelled_pixels=int(((w_out["labels"] != 65535)
+                             & (w_out["labels"] != 0)).sum()))
+    r = res["wide_129_rows"]
+    if (r["guarded"] or any(r["guard_muted"]) or r["label_mismatches_vs_cpu"]
+            or r["labelled_pixels"] == 0):
+        failures.append("wide_129_rows")
+    say("guard", card=smi, seed=GUARD_SEED, guarded=dict(
+        skip=skip.guarded, xla=xla.guarded, wide_129_rows=wide.guarded),
+        **res, failures=failures)
+    if failures or not skip.guarded or xla.guarded:
+        raise AssertionError(f"guard: {failures}")
 
 
 def grouping_runs(depth, level, pct):
@@ -1573,7 +1742,7 @@ def phase_bag_path(inp, smi):
         bag_bytes=sum(d.nbytes for d in depth) + sum(c.nbytes for c in color),
         write_s=write_s, open_s=open_s, source=type(src).__name__,
         ticks=ticks, wrapper_launches=list(launches),
-        launches_per_replay=graph.launches, graph_replays=graph.replays,
+        launches_per_body_replay=graph.launches, graph_replays=graph.replays,
         ms_per_tick=stats_ms(walls),
         ms_per_tick_each=[round(w * 1e3, 3) for w in walls],
         profiled_ticks=profiled_ticks, mismatches_vs_memory=mism,
@@ -2146,11 +2315,11 @@ def phase_mesh_path(inp, smi, forest_d16):
     h_ok = np.allclose(got["heights"], want["heights"], rtol=1e-5, atol=1e-3,
                        equal_nan=True)
     k_launches = [(l["K1"], l["K2"]) for _, l, _, _ in res["batch"]]
-    # each rank's one batched call: one replay of its crop program, whose
-    # warm-up and capture are the wrappers' only calls (the launches per
-    # replay do not depend on B)
-    crop = inp.pipe.graphs[("_batched_crop_program", tuple(inp.frames.shape))]
-    k_want = (2 * crop.launches[K1.__name__], 2 * crop.launches[K2.__name__])
+    # each rank's one batched call: one replay of its batched program,
+    # whose warm-up and capture are the wrappers' only calls (the launches
+    # per body do not depend on B)
+    graph = inp.pipe.graphs[("frame_step_batched", tuple(inp.frames.shape))]
+    k_want = (2 * body_launches(graph, K1), 2 * body_launches(graph, K2))
     say("mesh_batch_sharded", card=smi, mesh=[4, 1], backend="gloo",
         frames=int(inp.scenes.shape[0]), mismatches=exact,
         heights_within_tol=bool(h_ok), tips_valid=int(v.sum()),
@@ -2235,6 +2404,7 @@ def main():
     large, mb_launches = run("components_large", phase_components_large, inp,
                              smi)
     run("graph_vs_eager", phase_graph_vs_eager, inp, smi)
+    run("guard", phase_guard, inp, smi)
     launches = run("main_path", phase_main_path, inp, smi)
     run("pipelined_vs_not", phase_pipelined_vs_not, inp, smi)
     run("card_vs_cpu", phase_card_vs_cpu, inp.model, inp.scenes, inp.plane,

@@ -998,12 +998,21 @@ def _assert_same(got, want, what):
         assert same, f"{what}: {k} differs"
 
 
+def _taken(graph, call):
+    """call(), then the cond bodies of ``graph`` that its replay ran."""
+    before = graph.body_replays()
+    out = call()
+    after = graph.body_replays()
+    return out, sorted(b for b in after if b and after[b] != before[b])
+
+
 @pytest.mark.cuda
 def test_graph_replay_matches_eager(cuda_dev, bench, monkeypatch):
     """FramePipeline's replayed graphs against the eager programs bit for
     bit: the 16 scenes and an oversized-hand frame one by one, and batches
-    with nbad = 0, 1 and 3 (the all-full-frame program); no plain version
-    of the grouping stage runs on the card."""
+    with nbad = 0, 1 and 3 (every frame full-frame); each replay runs the
+    branches JAX's conds take; no plain version of the grouping stage runs
+    on the card."""
     from beats3d_tpu_torch.ops import components
     from beats3d_tpu_torch.runtime import pipeline as pl
 
@@ -1015,26 +1024,35 @@ def test_graph_replay_matches_eager(cuda_dev, bench, monkeypatch):
         monkeypatch.setattr(components, name, no_plain)
     pipe = pl.FramePipeline(bench.model, bench.intrin)
     big = pipe.as_depth(kernel_bench.oversized(bench.scenes[1], bench.intrin))
+    pipe(big, bench.plane)
+    live = pipe.graphs[("frame_step", tuple(big.shape))]
     for i, depth in enumerate(list(bench.frames) + [big]):
-        _assert_same(pipe(depth, bench.plane),
-                     pl.frame_step(pipe, depth, bench.plane), f"frame {i}")
-    assert pipe.replays == 17
+        got, taken = _taken(live, lambda: pipe(depth, bench.plane))
+        _assert_same(got, pl.frame_step(pipe, depth, bench.plane),
+                     f"frame {i}")
+        assert taken == (["full"] if i == 16 else ["crop"]), i
+    assert pipe.replays == 18
+    branches = {0: ["crop_then_rescue", "crop_then_rescue/none_oversized"],
+                1: ["crop_then_rescue", "crop_then_rescue/rescue"],
+                3: ["full"]}
     for bad in ((), (1,), (1, 4, 9)):
         frames = bench.frames.clone()
         for i in bad:
             frames[i] = pipe.as_depth(kernel_bench.oversized(
                 bench.scenes[i], bench.intrin))
-        got = pipe.batch(frames, bench.plane)
+        pipe.batch(frames, bench.plane)
+        graph = pipe.graphs[("frame_step_batched", tuple(frames.shape))]
+        got, taken = _taken(graph, lambda: pipe.batch(frames, bench.plane))
         _assert_same(got, pl.frame_step_batched(pipe, frames, bench.plane),
                      f"batch with {len(bad)} oversized")
+        assert taken == branches[len(bad)], bad
         assert got["g_info"].shape == (16, 2, 3)
 
 
 @pytest.mark.cuda
 def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
-    """Capturing and replaying the live frame and the batched crop program
-    with every synchronising call made an error (the batched call's one
-    read, nbad, comes after the replay)."""
+    """Capturing and replaying the live frame and the batched call, conds
+    and all, with every synchronising call made an error."""
     from beats3d_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.FramePipeline(bench.model, bench.intrin)
@@ -1044,20 +1062,20 @@ def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
         live = pipe(bench.frames[0], bench.plane)
         pipe.group_min_size = 0.05
         live2 = pipe(bench.frames[0], bench.plane)
-        crop = pipe._replay(pl._batched_crop_program, bench.frames,
-                            bench.plane)
+        batched = pipe.batch(bench.frames, bench.plane)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     assert live["labels"].shape == live2["labels"].shape == (2, 240, 424)
-    assert crop["labels"].shape == (16, 2, 240, 424)
+    assert batched["labels"].shape == (16, 2, 240, 424)
     assert pipe.replays == 3
 
 
 @pytest.mark.cuda
 def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     """A FrameGraph's warm-up and capture go through the kernel wrappers
-    (K1 twice, K2 and the grouping kernel once each per frame program); its
-    replays go through none, so they move no launch count."""
+    (K2 and the grouping kernel once outside the cond, K1 once in each of
+    its bodies); its replays go through none, so they move no launch
+    count."""
     from beats3d_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.FramePipeline(bench.model, bench.intrin)
@@ -1065,15 +1083,120 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     pipe(bench.frames[0], bench.plane)
     captured = [k.launches for k in pl.FRAME_KERNELS]
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
-    assert list(graph.launches.values()) == [2, 1, 1, 0]
+    assert {b: list(n.values()) for b, n in graph.launches.items()} == {
+        "": [0, 1, 1, 0], "full": [1, 0, 0, 0], "crop": [1, 0, 0, 0]}
     assert [a - b for a, b in zip(captured, before)] == [
-        2 * graph.launches[k.__name__] for k in pl.FRAME_KERNELS]
+        2 * sum(n[k.__name__] for n in graph.launches.values())
+        for k in pl.FRAME_KERNELS]
     for depth in bench.frames[1:4]:
         pipe(depth, bench.plane)
     torch.cuda.synchronize()
     assert [k.launches for k in pl.FRAME_KERNELS] == captured
     assert graph.replays == 4
 
+
+# --- conditional graph nodes (runtime/graph_cond.py) ----------------------
+
+def _cond_program(pred, inner, x, counters):
+    """x + 1 through cond(pred, yes, no) whose true body holds cond(inner,
+    ...); each body adds one to its own counter (yes, no, inner yes, inner
+    no)."""
+    from beats3d_tpu_torch.runtime.graph_cond import cond
+
+    def yes(y):
+        counters[0:1].add_(1)
+
+        def inner_yes(a):
+            counters[2:3].add_(1)
+            return a * 10, (a > 4)
+
+        def inner_no(a):
+            counters[3:4].add_(1)
+            return a - 1, (a < 2)
+
+        return (y * 2,) + tuple(cond(inner, inner_yes, inner_no, y))
+
+    def no(y):
+        counters[1:2].add_(1)
+        return y * 3, y + 100, y == 3
+
+    return cond(pred, yes, no, x + 1)
+
+
+def _capture_cond_program(dev):
+    from beats3d_tpu_torch.runtime import graph_cond
+
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    inner = torch.zeros((), dtype=torch.bool, device=dev)
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        _cond_program(pred, inner, x, counters)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    counters.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with graph_cond.graph(graph) as capture:
+        out = _cond_program(pred, inner, x, counters)
+    return graph, capture, out, (pred, inner, x, counters)
+
+
+@pytest.mark.cuda
+def test_cond_runs_only_the_taken_body(cuda_dev):
+    """Under capture, cond makes conditional nodes: a replay runs only the
+    body its predicate picks (each body's counter tensor moves only when
+    that body ran), nested conds included, and the card's body counters
+    agree."""
+    graph, capture, _, (pred, inner, _, counters) = _capture_cond_program(
+        cuda_dev)
+    assert capture.bodies == {"yes": (0, 0), "yes/inner_yes": (1, 0),
+                              "yes/inner_no": (1, 1), "no": (0, 1)}
+    want = {(True, True): [1, 0, 1, 0], (True, False): [1, 0, 0, 1],
+            (False, True): [0, 1, 0, 0], (False, False): [0, 1, 0, 0]}
+    for (p, q), moved in want.items():
+        pred.fill_(p)
+        inner.fill_(q)
+        before = counters.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (counters - before).tolist() == moved, (p, q)
+    taken = capture.taken[:2].tolist()
+    assert taken == [[2, 2], [1, 1]]
+
+
+@pytest.mark.cuda
+def test_cond_captured_equals_eager(cuda_dev):
+    """The captured conds' outputs equal the eager form's (both branches
+    run, torch.where selects) bit for bit, for every predicate pair."""
+    graph, _, out, (pred, inner, x, counters) = _capture_cond_program(
+        cuda_dev)
+    for p in (True, False):
+        for q in (True, False):
+            pred.fill_(p)
+            inner.fill_(q)
+            graph.replay()
+            want = _cond_program(pred, inner, x, counters)
+            torch.cuda.synchronize()
+            for a, b in zip(out, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (p, q)
+
+
+@pytest.mark.cuda
+def test_pipeline_refuses_without_conditional_nodes(cuda_dev, bench,
+                                                    monkeypatch):
+    """Where the CUDA toolkit or driver is older than conditional nodes
+    need, FramePipeline on the card raises naming the versions; it never
+    runs both branches instead."""
+    from beats3d_tpu_torch.runtime import graph_cond
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    monkeypatch.setattr(graph_cond, "MIN_CUDA", 99000)
+    monkeypatch.setattr(graph_cond, "_support_checked", set())
+    with pytest.raises(RuntimeError, match="driver CUDA") as err:
+        pl.FramePipeline(bench.model, bench.intrin)
+    assert torch.__version__ in str(err.value)
 
 
 # --- forests, models and images past the earlier kernels' caps ------------
@@ -1227,8 +1350,8 @@ def test_multiblock_grouping_matches_plain(cuda_dev, bench):
 def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
     """The live frame at depth_mm_level 1 (the multi-block grouping path in
     the captured graph): replays equal the eager program, the graph's
-    launches per replay are K1 2, K2 1 and the multi-block path 1, and a
-    replay moves no count."""
+    launches are K2 1 and the multi-block path 1 outside the cond and K1 1
+    in each branch, and a replay moves no count."""
     from beats3d_tpu_torch.ops import components
     from beats3d_tpu_torch.runtime import pipeline as pl
 
@@ -1239,9 +1362,12 @@ def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
         _assert_same(pipe(depth, bench.plane),
                      pl.frame_step(pipe, depth, bench.plane), f"frame {i}")
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
+    k1 = {"evaluate_layered_cuda": 1, "plane_band_gauss_cuda": 0,
+          "hand_groups_grown": 0, "hand_groups_multiblock": 0}
     assert graph.launches == {
-        "evaluate_layered_cuda": 2, "plane_band_gauss_cuda": 1,
-        "hand_groups_grown": 0, "hand_groups_multiblock": 1}
+        "": {"evaluate_layered_cuda": 0, "plane_band_gauss_cuda": 1,
+             "hand_groups_grown": 0, "hand_groups_multiblock": 1},
+        "full": k1, "crop": k1}
     before = components.hand_groups_multiblock.launches
     pipe(bench.frames[5], bench.plane)
     assert components.hand_groups_multiblock.launches == before
