@@ -23,7 +23,7 @@ from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
 from beats3d_tpu_torch.runtime.viewer import ViewerServer  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     parser = argparse.ArgumentParser(description="3d-beats (PyTorch/CUDA)")
     parser.add_argument("-cfg", required=True, type=str,
                         help="layered decision forest config JSON")
@@ -91,6 +91,12 @@ def main(argv=None):
             viewer.stop()
     print(f"processed {n} frames; {len(app.midi.sink.events)} midi events")
     return app, viewer
+
+
+def main(argv=None):
+    """The command line and the ``bz3d-torch`` console script: :func:`run`,
+    its result dropped (a console script exits with what ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

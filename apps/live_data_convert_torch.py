@@ -26,7 +26,7 @@ from beats3d_tpu_torch.models import DecisionForest  # noqa: E402
 from beats3d_tpu_torch.runtime import camera  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     parser = argparse.ArgumentParser(
         description="Convert a recorded session into training data for RDF "
                     "(PyTorch/CUDA)"
@@ -91,6 +91,13 @@ def main(argv=None):
         f"({conv.frames_skipped} pairs rejected by timestamp gate)"
     )
     return conv
+
+
+def main(argv=None):
+    """The command line and the ``b3d-live-data-convert-torch`` console
+    script: :func:`run`, its result dropped (a console script exits with
+    what ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ import numpy as np  # noqa: E402
 from beats3d_tpu_torch.ops.warp import make_projector_pattern  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--src", required=True)
     p.add_argument("--corners", nargs=4, required=True,
@@ -43,6 +43,13 @@ def main(argv=None):
     Image.fromarray(out).save(args.out)
     print(f"pattern: {args.out}  {out.shape[1]}x{out.shape[0]}")
     return out
+
+
+def main(argv=None):
+    """The command line and the ``b3d-make-proj-image-torch`` console
+    script: :func:`run`, its result dropped (a console script exits with
+    what ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

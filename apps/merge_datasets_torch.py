@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from beats3d_tpu_torch.data.merge import load_plan, merge_datasets  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     parser = argparse.ArgumentParser(description="Combine multiple datasets")
     parser.add_argument("-m", "--mapping", required=True, type=str,
                         help="Path to JSON file describing merge")
@@ -34,6 +34,13 @@ def main(argv=None):
     print(f"merged {result['num_images']} images "
           f"({result['num_classes'] - 1} classes) into {args.out}")
     return result
+
+
+def main(argv=None):
+    """The command line and the ``b3d-merge-datasets-torch`` console script:
+    :func:`run`, its result dropped (a console script exits with what
+    ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

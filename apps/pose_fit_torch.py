@@ -29,7 +29,7 @@ from beats3d_tpu_torch.runtime import camera  # noqa: E402
 from beats3d_tpu_torch.utils.orbit_html import write_orbit_html  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     parser = argparse.ArgumentParser(
         description="Cylinder pose fit (PyTorch/CUDA)")
     parser.add_argument("-m", "--model", required=True, type=str)
@@ -113,6 +113,13 @@ def main(argv=None):
         print(f"wrote {args.view}")
     source.stop()
     return best, cost, history, poses
+
+
+def main(argv=None):
+    """The command line and the ``b3d-pose-fit-torch`` console script:
+    :func:`run`, its result dropped (a console script exits with what
+    ``main`` returns)."""
+    run(argv)
 
 
 def write_fit_view(out, qf, labels, target_label, poses, max_obs=25000):

@@ -44,7 +44,7 @@ def frame_labels(depth, mat, pp, fx, model, threshold, scale_factor):
     return labels, points.make_rgba_from_labels(labels, model.label_colors)
 
 
-def main(argv=None):
+def run(argv=None):
     parser = argparse.ArgumentParser(
         description="Layered RDF demo (PyTorch/CUDA)")
     parser.add_argument("-cfg", required=True, type=str)
@@ -96,6 +96,13 @@ def main(argv=None):
     finally:
         source.stop()
     return n
+
+
+def main(argv=None):
+    """The command line and the ``b3d-run-live-layered-torch`` console
+    script: :func:`run`, its result dropped (a console script exits with
+    what ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

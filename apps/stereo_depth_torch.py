@@ -19,7 +19,7 @@ import torch  # noqa: E402
 from beats3d_tpu_torch.ops import stereo  # noqa: E402
 
 
-def main(argv=None):
+def run(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--left", required=True)
     p.add_argument("--right", required=True)
@@ -53,6 +53,13 @@ def main(argv=None):
           f"range [{int(depth[valid].min()) if valid.any() else 0}, "
           f"{int(depth.max())}]")
     return depth
+
+
+def main(argv=None):
+    """The command line and the ``b3d-stereo-depth-torch`` console script:
+    :func:`run`, its result dropped (a console script exits with what
+    ``main`` returns)."""
+    run(argv)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,10 @@ cpp_grouping.pyx:7-23): the parity oracle of the device path
 
 ``grouping.cpp`` beside this file is compiled by the host C++ compiler
 (``$CXX``, else ``c++`` / ``g++``) at first use into
-``build/beats3d_tpu_torch/`` beside the package, under a name that carries
-a hash of the source and the command, and bound with ``ctypes``.  A failed
-build raises; nothing falls back.  ``_make_groups_py`` is the plain version
-the tests hold the library to.
+``utils.compile_cache.kernel_build_dir()``, under a name that carries a hash
+of the source and the command, and bound with ``ctypes``.  A missing source
+or a failed build raises; nothing falls back.  ``_make_groups_py`` is the
+plain version the tests hold the library to.
 """
 
 from __future__ import annotations
@@ -25,10 +25,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "grouping.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "beats3d_tpu_torch")
+from ..utils.compile_cache import kernel_build_dir
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "grouping.cpp")
+BUILD_DIR = kernel_build_dir()
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
@@ -49,7 +50,13 @@ def _cxx() -> str:
 
 
 def compile_library() -> Build:
-    """Build (or reuse) the shared library; raise if the compiler fails."""
+    """Build (or reuse) the shared library; raise if the source is missing
+    or the compiler fails."""
+    if not os.path.isfile(SOURCE):
+        raise RuntimeError(
+            f"{SOURCE} is missing: this install of beats3d_tpu_torch lacks "
+            "its native grouping source (build the wheel with python -m "
+            "beats3d_tpu_torch.release)")
     cxx = _cxx()
     with open(SOURCE, "rb") as f:
         src = f.read()

@@ -2,11 +2,13 @@
 
 ``csrc/*.cu`` are compiled by ``nvcc`` at first use, one ``nvcc`` process per
 source, all started together, and linked into one shared library with a
-plain C interface in ``build/beats3d_tpu_torch/`` beside the package, bound
-with ``ctypes``.  The library's name carries a hash of
-the sources and flags, so an edited source is rebuilt and a stale build is
-never loaded.  Nothing here runs at import time: the CPU tests import every
-module on hosts without ``nvcc``.
+plain C interface in ``utils.compile_cache.kernel_build_dir()`` (a checkout's
+``build/beats3d_tpu_torch/``, an installed copy's user cache), bound with
+``ctypes``.  The library's name carries a hash of the sources and flags, so
+an edited source is rebuilt and a stale build is never loaded.  An install
+without ``csrc/*.cu`` raises naming the directory; nothing falls back to the
+plain versions.  Nothing is built at import time: the CPU tests import
+every module on hosts without ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper); ``--fmad=false`` and ``-prec-div=true`` because
 probe offsets and the plane-band test sit on integer and threshold
@@ -31,9 +33,10 @@ import threading
 import time
 from typing import Optional
 
-PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ..utils.compile_cache import PKG_DIR, kernel_build_dir
+
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "beats3d_tpu_torch")
+BUILD_DIR = kernel_build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",
@@ -98,6 +101,11 @@ class _Library:
 
 def _compile() -> Build:
     srcs = _sources()
+    if not any(s.endswith(".cu") for s in srcs):
+        raise RuntimeError(
+            f"no CUDA kernel sources (*.cu) in {CSRC_DIR}: this install of "
+            "beats3d_tpu_torch lacks its kernel sources (build the wheel "
+            "with python -m beats3d_tpu_torch.release)")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:

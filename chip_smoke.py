@@ -71,6 +71,15 @@ Then drives the port's paths:
   same frames fed from memory; then apps/run_live_layered_torch.py (K1 once
   per frame) and apps/bz3d_torch.py --viewer on the bag, the dashboard's
   /state.json fetched and one POST /tunables checked;
+* the release: ``beats3d_tpu_torch.release`` builds the wheel and bundle
+  into a temporary directory, pip installs the wheel into <tmp>/site, and
+  fresh processes that see only the install (no checkout on sys.path; HOME
+  and BEATS3D_COMPILE_CACHE an empty <tmp>/cache) build the kernels from
+  the installed sources into that cache and run the instrument on a bag of
+  the same 48 frames with the bundle's flagship (K1, K2 and the grouping
+  kernel launched; labels, heights and MIDI events equal to this checkout's
+  run bit for bit), then start again on the built cache; the installed
+  ``bz3d-torch`` plays the bag and exits 0;
 * stereo: block matching at 480x848 on a pair with a known piecewise
   disparity field, card = CPU bit for bit with the app's matcher (D=32,
   block 11) and the JAX test's (D=16, block 7, which must recover 95 % of
@@ -114,8 +123,11 @@ import os
 import struct
 import subprocess
 import sys
+import tarfile
+import tempfile
 import time
 import urllib.request
+import zipfile
 import zlib
 
 import numpy as np
@@ -135,6 +147,7 @@ from beats3d_tpu_torch.data import synth  # noqa: E402
 from beats3d_tpu_torch.data.synth import articulated_scene  # noqa: E402
 from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
+from beats3d_tpu_torch import release  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
 from beats3d_tpu_torch.models.forest import (  # noqa: E402
     DecisionForest, DecisionTree, PackedForest)
@@ -1536,7 +1549,7 @@ def phase_posefit_path(dev, smi):
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        _, app_cost, app_history, _ = load_app("pose_fit_torch").main([
+        _, app_cost, app_history, _ = load_app("pose_fit_torch").run([
             "-m", os.path.join(FLAGSHIP, "m0.npy"), "--synthetic",
             "--plane_z_threshold", "40", "--seed", "0"])
     sync(dev)
@@ -1711,7 +1724,7 @@ def phase_bag_path(inp, smi):
         t0 = time.perf_counter()
         layered = load_app("run_live_layered_torch")
         with contextlib.redirect_stdout(log):
-            layered_frames = layered.main([
+            layered_frames = layered.run([
                 "-cfg", os.path.join(FLAGSHIP, "model_cfg.json"),
                 "--rs_bag", path])
         sync("cuda")
@@ -1727,7 +1740,7 @@ def phase_bag_path(inp, smi):
         K1.launches = K2.launches = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
-            bz_app, _ = bz3d.main([
+            bz_app, _ = bz3d.run([
                 "-cfg", os.path.join(FLAGSHIP, "model_cfg.json"),
                 "--rs_bag", path, "--viewer", "--viewer_port", "0"])
         bz_launches = (K1.launches, K2.launches)
@@ -1785,6 +1798,168 @@ def phase_bag_path(inp, smi):
         raise AssertionError(f"POST /tunables: {probe}")
     return launches
 
+
+# the instrument on the bag, run by an installed copy in a process of its
+# own: argv out.npz, model_cfg.json, bag; the last stdout line is a JSON
+# report (where it imported from, the build, the launches)
+INSTALLED_RUN = r"""
+import argparse, json, os, sys, time
+import numpy as np
+import torch
+import apps, beats3d_tpu_torch
+from beats3d_tpu_torch.models import LayeredDecisionForest
+from beats3d_tpu_torch.ops import (
+    components, cuda_lib, forest_eval_cuda, preproc_cuda)
+from beats3d_tpu_torch.runtime import camera
+from beats3d_tpu_torch.runtime.app import AppConfig, BeatsApp
+from beats3d_tpu_torch.runtime.midi import Midi
+
+out_path, cfg_path, bag = sys.argv[1:4]
+t0 = time.perf_counter()
+cuda_lib.library()
+library_s = time.perf_counter() - t0
+build = cuda_lib.LIBRARY.build
+cfg = AppConfig()
+src = camera.open_source(argparse.Namespace(
+    session=None, synthetic=False, rs_bag=bag, rs_half_resolution=False))
+model = LayeredDecisionForest.load(cfg_path, labels_reduce=cfg.labels_reduce,
+                                   device="cuda")
+app = BeatsApp(model, src, midi=Midi(), cfg=cfg, log=lambda *a: None)
+outs = [app.tick(frame) for frame in src.frames()] + [app.flush()]
+outs = [o for o in outs if o is not None]
+torch.cuda.synchronize()
+keys = ("labels", "g_info", "heights", "tip_valid", "means")
+np.savez(out_path, midi=np.asarray(
+    [m for _, m in app.midi.sink.events], np.int64).reshape(-1, 3),
+    **{k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in keys})
+print(json.dumps(dict(
+    files=[beats3d_tpu_torch.__file__, apps.__file__, cuda_lib.CSRC_DIR],
+    sys_path=sys.path, source=type(src).__name__,
+    build=dict(path=build.path, seconds=build.seconds, library_s=library_s),
+    launches=[forest_eval_cuda.evaluate_layered_cuda.launches,
+              preproc_cuda.plane_band_gauss_cuda.launches,
+              components.hand_groups_grown.launches],
+    ticks=len(outs))))
+"""
+RELEASE_KEYS = ("labels", "g_info", "heights", "tip_valid", "means")
+
+
+def checkout_bag_run(cfg_path, bag):
+    """This checkout's instrument on the bag, as INSTALLED_RUN drives it."""
+    cfg = AppConfig()
+    src = camera.open_source(argparse.Namespace(
+        session=None, synthetic=False, rs_bag=bag, rs_half_resolution=False))
+    model = LayeredDecisionForest.load(
+        cfg_path, labels_reduce=cfg.labels_reduce, device="cuda")
+    app = BeatsApp(model, src, midi=Midi(), cfg=cfg, log=lambda *a: None)
+    outs, _, _ = bag_drive(app, list(src.frames()))
+    got = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+           for k in RELEASE_KEYS}
+    got["midi"] = np.asarray([m for _, m in app.midi.sink.events],
+                             np.int64).reshape(-1, 3)
+    return got
+
+
+def phase_release_path(inp, smi):
+    """The release as a user installs it: the wheel and bundle built by
+    ``beats3d_tpu_torch.release`` into a temporary directory, the wheel
+    installed by pip into <tmp>/site, then fresh processes that see only the
+    install (cwd <tmp>/run, PYTHONPATH <tmp>/site, HOME and
+    BEATS3D_COMPILE_CACHE an empty <tmp>/cache) run the instrument on the
+    card over a bag of the 48 bag frames with the bundle's flagship: the
+    first start builds the kernels from the installed sources into the
+    cache, the second reuses them; both launch K1, K2 and the grouping
+    kernel and give this checkout's labels, heights and MIDI events bit for
+    bit; then the installed ``bz3d-torch`` plays the bag and exits 0."""
+    with tempfile.TemporaryDirectory(prefix="b3d_release_") as tmp:
+        site, run_dir, cache = (os.path.join(tmp, n)
+                                for n in ("site", "run", "cache"))
+        for d in (run_dir, cache):
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        rel = release.build_release(os.path.join(tmp, "dist"))
+        release_s = time.perf_counter() - t0
+        with zipfile.ZipFile(rel.wheel) as z:
+            wheel_files = len(z.namelist())
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--no-deps",
+             "--no-index", "--disable-pip-version-check", "--no-cache-dir",
+             "-q", "--target", site, rel.wheel], check=True)
+        install_s = time.perf_counter() - t0
+        with tarfile.open(rel.bundle) as tf:
+            tf.extractall(os.path.join(tmp, "bundle"), filter="data")
+        cfg_path = os.path.join(tmp, "bundle", "models", "flagship",
+                                "model_cfg.json")
+        depth, color, ts, cts = bag_frames(inp.intrin)
+        bag = os.path.join(tmp, "release.bag")
+        write_minimal_bag(bag, depth, ts, color, cts, inp.intrin)
+        want = checkout_bag_run(cfg_path, bag)
+
+        env = dict(os.environ, PYTHONPATH=site, HOME=cache,
+                   BEATS3D_COMPILE_CACHE=cache)
+        starts = []
+        for n in range(2):
+            out = os.path.join(tmp, f"start{n}.npz")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", INSTALLED_RUN, out, cfg_path, bag],
+                cwd=run_dir, env=env, capture_output=True, text=True)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"installed run {n} failed "
+                                     f"({proc.returncode}):\n{proc.stdout}"
+                                     f"{proc.stderr[-4000:]}")
+            report = json.loads(proc.stdout.splitlines()[-1])
+            with np.load(out) as got:
+                mism = {k: int(got[k].shape != want[k].shape
+                               or got[k].tobytes() != want[k].tobytes())
+                        for k in want}
+            starts.append(dict(report, process_s=wall, mismatches=mism))
+
+        script = os.path.join(site, "bin", "bz3d-torch")
+        t0 = time.perf_counter()
+        proc = subprocess.run([script, "-cfg", cfg_path, "--rs_bag", bag,
+                               "--no_debug"], cwd=run_dir, env=env,
+                              capture_output=True, text=True)
+        script_s = time.perf_counter() - t0
+        cache_dir = os.path.join(cache, "beats3d_tpu_torch") + os.sep
+        first, second = starts
+        say("release_path", card=smi, wheel=os.path.basename(rel.wheel),
+            wheel_files=wheel_files, wheel_bytes=os.path.getsize(rel.wheel),
+            bundle_bytes=os.path.getsize(rel.bundle), release_s=release_s,
+            install_s=install_s, frames=BAG_FRAMES,
+            fresh_cache_nvcc_s=first["build"]["seconds"],
+            reuse_s=second["build"]["library_s"],
+            midi_events=len(want["midi"]),
+            starts=[{k: v for k, v in s.items() if k != "sys_path"}
+                    for s in starts],
+            bz3d_torch=dict(rc=proc.returncode, seconds=script_s))
+        for n, s in enumerate(starts):
+            where = [f for f in s["files"] if not f.startswith(site + os.sep)]
+            on_path = [p for p in s["sys_path"]
+                       if os.path.realpath(p or run_dir)
+                       == os.path.realpath(HERE)]
+            if where or on_path or s["source"] != "BagSource":
+                raise AssertionError(f"start {n}: imported {where} outside "
+                                     f"the install, checkout on sys.path "
+                                     f"{on_path}, source {s['source']}")
+            if not s["build"]["path"].startswith(cache_dir):
+                raise AssertionError(f"start {n}: library {s['build']} "
+                                     f"outside {cache_dir}")
+            if min(s["launches"]) < 1 or any(s["mismatches"].values()):
+                raise AssertionError(f"start {n}: launches (K1, K2, "
+                                     f"grouping) {s['launches']}, "
+                                     f"mismatches {s['mismatches']}")
+        if not (first["build"]["seconds"] > 0
+                and second["build"]["seconds"] == 0.0
+                and second["build"]["path"] == first["build"]["path"]):
+            raise AssertionError(f"builds: fresh {first['build']}, "
+                                 f"reused {second['build']}")
+        if proc.returncode != 0:
+            raise AssertionError(f"bz3d-torch exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-4000:]}")
 
 def phase_stereo_path(dev, smi):
     """block_match_disparity + depth_from_disparity at 480x848 on a known
@@ -2425,6 +2600,7 @@ def main():
         inp.intrin)
     run("posefit_path", phase_posefit_path, dev, smi)
     run("bag_path", phase_bag_path, inp, smi)
+    run("release_path", phase_release_path, inp, smi)
     run("stereo_path", phase_stereo_path, dev, smi)
     run("warp_path", phase_warp_path, dev, smi)
     run("grouping_path", phase_grouping_path, inp, smi)

@@ -275,7 +275,7 @@ def test_live_data_convert_app_on_cpu(tmp_path):
     app = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(app)
     before = forest_eval_cuda.evaluate_forest_cuda.launches
-    conv = app.main(["--session", str(tmp_path / "s.npz"), "-o",
+    conv = app.run(["--session", str(tmp_path / "s.npz"), "-o",
                      str(tmp_path / "ds"), "--colors", "3",
                      "--plane_z_threshold", "40", "--mask_model", MASK_MODEL,
                      "--mask_label", "1", "--seed", "3", "--device", "cpu"])

@@ -76,7 +76,7 @@ def test_merge_app_matches_jax(tmp_path):
         os.path.join(ROOT, "apps", "merge_datasets_torch.py"))
     app = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(app)
-    out = app.main(["-m", str(tmp_path / "plan.json"), "-o",
+    out = app.run(["-m", str(tmp_path / "plan.json"), "-o",
                     str(tmp_path / "port"), "--only_one"])
     assert out["num_images"] == 2
     jax_merge(load_plan(str(tmp_path / "plan.json")), str(tmp_path / "jax"),

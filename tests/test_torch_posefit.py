@@ -107,7 +107,7 @@ def test_pose_fit_app_runs_on_cpu(tmp_path):
     """apps/pose_fit_torch.py on the synthetic source at 424x240 with the
     flagship's coarse layer, on the CPU (B1's plain version: no launch)."""
     before = forest_eval_cuda.evaluate_forest_cuda.launches
-    best, cost, history, poses = _load_app("pose_fit_torch").main([
+    best, cost, history, poses = _load_app("pose_fit_torch").run([
         "-m", os.path.join(ROOT, "models", "flagship", "m0.npy"),
         "--synthetic", "--rs_half_resolution", "--plane_z_threshold", "40",
         "--plane_num_iterations", "256", "--iterations", "8", "--seed", "0",

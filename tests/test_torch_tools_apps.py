@@ -74,7 +74,7 @@ def test_run_live_layered_frame_matches_jax(tmp_path, rng):
 
 def test_run_live_layered_cli_cpu(tmp_path, rng, capsys):
     cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
-    n = _app("run_live_layered_torch").main([
+    n = _app("run_live_layered_torch").run([
         "-cfg", cfg_path, "--device", "cpu", "--synthetic",
         "--rs_half_resolution", "--plane_num_iterations", "256",
         "--frames", "31"])
