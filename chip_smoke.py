@@ -39,6 +39,16 @@ Then drives the port's paths:
   captures); a pipelined and an unpipelined BeatsApp on the same 60
   frames (the same host copies and MIDI events); the port's plain path
   on the CPU on the same frames;
+* the device-time reader (``utils/devtime.py``, devtime_path): one
+  torch.profiler window of 32 pipelined live ticks and one of 6 batched
+  calls, each chrome trace read by ``parse_trace`` and held against
+  ``key_averages`` of the same window (every device name's launches and
+  ms; K1, K2 and the grouping kernel in their stages with the launches
+  the graphs replayed; the busy union at most the wall and the summed
+  device time, at least any stream's union), the idle shares from the
+  union and from the sum printed; then ``measure_device_ms`` over 10 live
+  ticks and 6 batched calls (device ms at most the wall), over a CPU-only
+  function (None) and over one that raises on the card (it raises);
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
   (training split bits) and B1 (single-forest evaluation), its pct_match
@@ -101,7 +111,10 @@ Then drives the port's paths:
   ``python -m beats3d_tpu_torch.parallel --ranks 4 --device cuda``.
 
 Each path checks that its kernels ran on it and that the outputs are right.
-Any failure raises (exit code != 0).
+Any failure raises (exit code != 0).  The phases that count K1 in a
+conditional node's body by its traced name (components_large,
+graph_vs_eager, main_path, devtime_path, bag_path) each run in a process
+of its own (``chip_smoke.py --phase NAME``, :func:`fresh`).
 
 Kernel times (``ms``) are device times from a CUDA graph replay
 (``utils.profiler.graph_ms``); the plain versions are launched from the
@@ -168,6 +181,7 @@ from beats3d_tpu_torch.runtime.camera import SyntheticSource  # noqa: E402
 from beats3d_tpu_torch.runtime.midi import Midi  # noqa: E402
 from beats3d_tpu_torch.runtime.viewer import ViewerServer  # noqa: E402
 from beats3d_tpu_torch.train import DecisionTreeTrainer, train_forest  # noqa: E402
+from beats3d_tpu_torch.utils import devtime  # noqa: E402
 from beats3d_tpu_torch.utils.intrinsics import CameraIntrinsics  # noqa: E402
 from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
 
@@ -192,6 +206,12 @@ LEVEL1_KERNELS = FRAME_KERNELS[:2] + (
 APP_FRAMES = 60
 PIPELINE_CHECK_FRAMES = 60       # ticks after the warm-up, in each mode
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
+# devtime_path: the profiled windows (live ticks, batched calls), then
+# measure_device_ms's iterations of each (bench.py's: 10 and 6)
+DEVTIME_WINDOWS, DEVTIME_ITERS = (32, 6), (10, 6)
+# the stage of each frame kernel's traced name (utils.devtime.STAGES)
+FRAME_KERNEL_STAGES = {"k1": "eval_kernel", "k2": "preproc",
+                       "grouping": "components"}
 BATCH = kb.BATCH
 CLASSES = 7          # background, palm, five fingers
 TRAIN_FRAMES, TEST_FRAMES = 16, 4
@@ -365,17 +385,25 @@ def kernel_device_ms(prof, needle):
     return n, (total_us / n / 1e3 if n else None)
 
 
-def device_profile(prof, calls, wall_ms, ranges=()):
-    """Per call of a torch.profiler window: device operations (kernels,
-    copies, sets), their device ms, the profiled wall ms, the device's idle
-    share of it, and the five largest device-time names.  ``ranges``: name
+def device_ops(prof, ranges=()):
+    """(self device us, key_averages entry) of each device operation name
+    (kernels, copies, sets) of a torch.profiler window.  ``ranges``: name
     prefixes of record_function ranges, whose device-side spans are not
     operations."""
     ops = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
            and not e.key.startswith(tuple(ranges))]
-    dev_us = [(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)), e) for e in ops]
+    return [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)), e) for e in ops]
+
+
+def device_profile(prof, calls, wall_ms, ranges=()):
+    """Per call of a torch.profiler window: device operations (kernels,
+    copies, sets), their device ms, the profiled wall ms, the device's idle
+    share of it (1 - the operations' summed ms / wall), and the five
+    largest device-time names.  ``ranges``: as in :func:`device_ops`."""
+    dev_us = device_ops(prof, ranges)
+    ops = [e for _, e in dev_us]
     device_ms = sum(us for us, _ in dev_us) / 1e3 / calls
     top = sorted(dev_us, key=lambda t: -t[0])[:5]
     return dict(device_ops_per_call=sum(e.count for e in ops) / calls,
@@ -493,7 +521,7 @@ def host_traffic(prof, calls):
         **{f"copies_{d}_per_call": c / calls for d, c in copies.items()})
 
 
-def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
+def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=(), trace=None):
     """torch.profiler over ``calls`` calls of run(), each in a
     ``CALL_RANGE`` range, after one warm-up call that the profiler traces
     and drops (the schedule's warm-up step: without it a window's first
@@ -506,7 +534,9 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
     else may launch a frame kernel.  ``kernels``:
     (key, wrapper, traced name) of the frame kernels to hold; ``count``:
     name parts whose kernels' launches and device ms per call are reported
-    as well."""
+    as well; ``trace``: a path the window's chrome trace is written to, its
+    device operations then returned by name as ``device_ops`` ([ms,
+    launches] over the window, from ``key_averages``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=calls, repeat=1)
@@ -526,8 +556,12 @@ def profiled(run, calls, pipe, kernels=FRAME_KERNELS, count=()):
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3 / calls
             prof.step()
-    res = device_profile(prof, calls, wall_ms,
-                         ranges=(CALL_RANGE, "ProfilerStep#"))
+    ranges = (CALL_RANGE, "ProfilerStep#")
+    res = device_profile(prof, calls, wall_ms, ranges=ranges)
+    if trace is not None:
+        prof.export_chrome_trace(trace)
+        res["device_ops"] = {e.key: [us / 1e3, e.count]
+                             for us, e in device_ops(prof, ranges)}
     res.update(host_traffic(prof, calls))
     res["graph_replays_per_call"] = sum(
         g.replays - replays.get(key, 0)
@@ -714,6 +748,177 @@ def phase_pipelined_vs_not(inp, smi):
                              f"{len(a)} and {len(b)} updates, "
                              f"{len(events[True])} and {len(events[False])} "
                              "MIDI events")
+
+
+def stream_ms(evs):
+    """{"device/stream": [summed ms, busy (union) ms]} of
+    ``devtime.device_events``' events, and [count, least ns, most ns] of
+    the events that the next one of their stream starts inside of
+    without ending inside of."""
+    streams = {}
+    for ev in evs:
+        streams.setdefault(f"{ev[0]}/{ev[1]}", []).append(ev)
+    overlaps = []
+    for v in streams.values():
+        line = sorted((st, en) for _, _, st, en, _ in v)
+        overlaps += [a[1] - b[0] for a, b in zip(line, line[1:])
+                     if b[0] < a[1] < b[1]]
+    return ({k: [sum(en - st for _, _, st, en, _ in v) / 1e6,
+                 devtime.tables(v)[0]] for k, v in streams.items()},
+            [len(overlaps), min(overlaps, default=0),
+             max(overlaps, default=0)])
+
+
+def devtime_window(name, w, logdir, calls):
+    """One profiled window of main_path's calls read two ways: the port's
+    ``devtime.parse_trace`` on the window's chrome trace against
+    ``key_averages`` (``w``: :func:`profiled`'s result).  Every device name
+    has the same launches and ms within 1e-3 relative; K1, K2 and the
+    grouping kernel sit in their stages with the launches the graphs
+    replayed; the busy union is at most the window's wall and the summed
+    self time, and at least the largest stream's union (a stream's own sum
+    can be larger: a graph's consecutive kernels overlap by tens of ns in
+    the trace).  Returns what the phase prints: both idle shares, the
+    overlap, each stream's sum and union and the stage table, per call."""
+    busy, per_op, stages = devtime.parse_trace(logdir)
+    evs, _ = devtime.device_events(devtime.newest_trace(logdir))
+    want = w["device_ops"]
+    if set(per_op) != set(want):
+        raise AssertionError(
+            f"{name}: names only in the trace "
+            f"{sorted(set(per_op) - set(want))}, only in key_averages "
+            f"{sorted(set(want) - set(per_op))}")
+    for op, (ms, n) in per_op.items():
+        k_ms, k_n = want[op]
+        if n != k_n or abs(ms - k_ms) > 1e-3 * max(abs(k_ms), 1e-12):
+            raise AssertionError(f"{name}: {op}: trace {ms} ms {n} launches, "
+                                 f"key_averages {k_ms} ms {k_n}")
+    in_stage = {}
+    for key, _, needle in FRAME_KERNELS:
+        names = [op for op in per_op if needle in op]
+        got = {devtime.stage_of(op) for op in names}
+        n = sum(per_op[op][1] for op in names)
+        replayed = round(w[key]["replayed_per_call"] * calls)
+        in_stage[key] = dict(names=names, stage=sorted(got), launches=n,
+                             replayed=replayed)
+        if got != {FRAME_KERNEL_STAGES[key]} or n != replayed:
+            raise AssertionError(f"{name}: {key}: {in_stage[key]}")
+    wall = w["wall_ms_per_call"] * calls
+    summed = w["device_ms_per_call"] * calls      # key_averages' self times
+    streams, partial = stream_ms(evs)
+    # busy is exact (integer ns); summed adds float us: 1e-9 of slack
+    if not (max(u for _, u in streams.values()) <= busy
+            <= min(wall, summed * (1 + 1e-9))):
+        raise AssertionError(f"{name}: busy {busy} ms, wall {wall}, summed "
+                             f"{summed}, streams {streams}")
+    return dict(
+        calls=calls, wall_ms_per_call=w["wall_ms_per_call"],
+        busy_ms_per_call=busy / calls, summed_ms_per_call=summed / calls,
+        overlap_ms_per_call=(summed - busy) / calls,
+        partial_overlaps_count_min_max_ns=partial, device_events=len(evs),
+        idle_share_union=1.0 - busy / wall, idle_share_sum=w["idle_share"],
+        stream_sum_union_ms_per_call={k: [v / calls for v in su]
+                                      for k, su in streams.items()},
+        stages_per_call={k: [v[0] / calls, v[1] / calls]
+                         for k, v in sorted(stages.items())},
+        device_names=len(per_op), frame_kernels=in_stage)
+
+
+def phase_devtime_path(inp, smi):
+    """The port's device-time reader (``utils/devtime.py``) on the main
+    path: one torch.profiler window of 32 pipelined live ticks and one of 6
+    batched B=16 calls, as main_path runs them, each trace read by
+    ``parse_trace`` and held against ``key_averages`` of the same window
+    (:func:`devtime_window`); then ``measure_device_ms`` over 10 live ticks
+    and 6 batched calls (device ms at most the wall), over a CPU-only
+    function (None) and over a function that raises on the card (the error
+    comes out)."""
+    model, frames, plane = inp.model, inp.frames, inp.plane
+    source = SyntheticSource(inp.intrin)
+    app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(pipelined=True),
+                   log=lambda *a: None)
+    n_frames = (app.cfg.warmup_frames + 2 + 1 + DEVTIME_WINDOWS[0]
+                + 1 + DEVTIME_ITERS[0])
+    it = iter([f for f, _ in zip(source.frames(), range(n_frames))])
+    for _ in range(app.cfg.warmup_frames + 2):  # calibration, capture, warm
+        app.tick(next(it))
+    app.pipeline.batch(frames, plane)           # the batched graph's capture
+    torch.cuda.synchronize()
+    runs = (("live", lambda: app.tick(next(it)),
+             lambda out: torch.cuda.synchronize()),
+            ("batched", lambda: app.pipeline.batch(frames, plane),
+             lambda out: out["heights"].cpu()))
+    res, measured = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for (name, run, sync_fn), calls, iters in zip(runs, DEVTIME_WINDOWS,
+                                                      DEVTIME_ITERS):
+            logdir = os.path.join(tmp, name)
+            os.makedirs(logdir)
+            w = profiled(run, calls, app.pipeline,
+                         trace=os.path.join(logdir, "window.pt.trace.json"))
+            res[name] = devtime_window(name, w, logdir, calls)
+            m = devtime.measure_device_ms(
+                run, iters, logdir=os.path.join(tmp, f"{name}_measured"),
+                sync=sync_fn)
+            measured[name] = dict(m, iters=iters)
+            if not m["device_ms"] <= m["wall_ms"]:
+                raise AssertionError(f"measure_device_ms on {name}: {m}")
+        app.flush()
+        host_calls = []
+        cpu_only = devtime.measure_device_ms(
+            lambda: host_calls.append(np.ones(8).sum()), 3,
+            logdir=os.path.join(tmp, "cpu_only"))
+        if cpu_only is not None or len(host_calls) != 4:
+            raise AssertionError(f"CPU-only fn: {cpu_only}, "
+                                 f"{len(host_calls)} calls")
+        dev = frames.device
+        try:
+            devtime.measure_device_ms(
+                lambda: torch.ones(3, device=dev) + torch.ones(4, device=dev),
+                2, logdir=os.path.join(tmp, "raises"))
+        except RuntimeError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a failing fn did not raise out of "
+                                 "measure_device_ms")
+        if "must match the size" not in raised:
+            raise AssertionError(f"measure_device_ms raised {raised!r}")
+    say("devtime_path", card=smi, windows=res, measure_device_ms=measured,
+        cpu_only=cpu_only, raised=raised)
+
+
+PHASE_FLAG = "--phase"
+
+
+def fresh(name):
+    """Phase ``name`` of :data:`FRESH_PHASES` in a process of its own, whose
+    only CUDA graphs are the phase's; forwards the phase's lines and
+    returns its result.  Once a process has dropped CUDA graphs, the
+    profiler can give the kernels that a later graph runs in a conditional
+    node's body other kernels' names (on the card, in this script's phase
+    order: 12 records named K1 in a batched window of 6 replays, and 4 in
+    one of 5), and these phases count K1 in such bodies by its name."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           PHASE_FLAG, name], cwd=HERE, capture_output=True,
+                          text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith(f'{{"phase": "{name}"')]
+    results = [json.loads(line)["value"] for line in proc.stdout.splitlines()
+               if line.startswith('{"phase": "result"')]
+    if proc.returncode != 0 or not lines or len(results) != 1:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print("\n".join(lines), flush=True)
+    return results[0]
+
+
+def fresh_main(name):
+    """The body of :func:`fresh`'s process (``chip_smoke.py --phase
+    NAME``): the card, the bench inputs, the phase, its result."""
+    smi = phase_device()
+    value = FRESH_PHASES[name](kb.bench_inputs(torch.device("cuda", 0)), smi)
+    say("result", value=value)
 
 
 def same_outputs(got, want):
@@ -2576,11 +2781,11 @@ def main():
     uf = run("components_vs_plain", phase_components, inp, smi)
     wide = run("wide_forests_vs_plain", phase_wide_forests, inp, dev, smi)
     run("wide_pipeline", phase_wide_pipeline, inp, smi)
-    large, mb_launches = run("components_large", phase_components_large, inp,
-                             smi)
-    run("graph_vs_eager", phase_graph_vs_eager, inp, smi)
+    large, mb_launches = run("components_large", fresh, "components_large")
+    run("graph_vs_eager", fresh, "graph_vs_eager")
     run("guard", phase_guard, inp, smi)
-    launches = run("main_path", phase_main_path, inp, smi)
+    launches = run("main_path", fresh, "main_path")
+    run("devtime_path", fresh, "devtime_path")
     run("pipelined_vs_not", phase_pipelined_vs_not, inp, smi)
     run("card_vs_cpu", phase_card_vs_cpu, inp.model, inp.scenes, inp.plane,
         inp.intrin)
@@ -2599,7 +2804,7 @@ def main():
     run("datagen_card_vs_cpu", phase_datagen_card_vs_cpu, dev, scenes,
         inp.intrin)
     run("posefit_path", phase_posefit_path, dev, smi)
-    run("bag_path", phase_bag_path, inp, smi)
+    run("bag_path", fresh, "bag_path")
     run("release_path", phase_release_path, inp, smi)
     run("stereo_path", phase_stereo_path, dev, smi)
     run("warp_path", phase_warp_path, dev, smi)
@@ -2659,5 +2864,16 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+# the phases that count K1 in a cond body by its traced name, each run in
+# a process of its own (:func:`fresh`)
+FRESH_PHASES = {"components_large": phase_components_large,
+                "graph_vs_eager": phase_graph_vs_eager,
+                "main_path": phase_main_path,
+                "devtime_path": phase_devtime_path,
+                "bag_path": phase_bag_path}
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [PHASE_FLAG]:
+        fresh_main(sys.argv[2])
+    else:
+        main()

@@ -21,6 +21,7 @@ from beats3d_tpu_torch.ops import (cuda_lib, forest_eval, forest_eval_cuda,
                                    points, preproc_cuda, train_features,
                                    train_features_cuda)
 from beats3d_tpu_torch.train.proposals import make_random_features
+from beats3d_tpu_torch.utils import devtime
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(os.path.dirname(HERE), "models", "flagship")
@@ -1391,3 +1392,55 @@ def test_pipeline_model_on_an_unindexed_device(cuda_dev):
     plane[2, 3] = -2600.0
     out = pipe(depth, plane)
     assert out["labels"].shape == (2, 60, 106)
+
+
+@pytest.mark.cuda
+def test_measure_device_ms_on_k2_graph_replay(cuda_dev, tmp_path, monkeypatch):
+    """utils.devtime.measure_device_ms over a CUDA graph of 20 K2 calls on
+    the golden frames (as ``utils.profiler.graph_ms`` replays one): its
+    preproc stage is K2's device time in ``key_averages`` of the same
+    profiler window, and the busy union is at most the summed device
+    time and, with a ``sync`` that waits for the card, the wall."""
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    depth = torch.as_tensor(data["depth"]).to(cuda_dev).to(torch.int32)
+    depth = depth.contiguous()
+    mat = torch.eye(4, device=cuda_dev)
+    mat[2, 3] = -float(np.median(data["depth"][data["depth"] > 0]))
+    pp = np.array([424.0, 240.0], np.float32)
+
+    def k2():
+        return preproc_cuda.plane_band_gauss_cuda(depth, mat, pp, 180.0, 40.0)
+
+    k2()
+    torch.cuda.synchronize()
+    calls, iters = 20, 5
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            k2()
+    graph.replay()
+    torch.cuda.synchronize()
+
+    windows = []
+
+    class Recorded(torch.profiler.profile):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            windows.append(self)
+
+    monkeypatch.setattr(torch.profiler, "profile", Recorded)
+    got = devtime.measure_device_ms(graph.replay, iters,
+                                    logdir=str(tmp_path / "t"),
+                                    sync=lambda out: torch.cuda.synchronize())
+    (prof,) = windows
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    k2_ops = [e for e in ops if "plane_band_gauss_kernel" in e.key]
+    assert sum(e.count for e in k2_ops) == iters * calls
+    k2_ms = sum(e.self_device_time_total for e in k2_ops) / 1e3
+    summed = sum(e.self_device_time_total for e in ops) / 1e3
+    assert got["stages"]["preproc"] * iters == pytest.approx(k2_ms, rel=1e-3)
+    # busy is exact (integer ns); key_averages sums float us
+    assert got["device_ms"] * iters <= summed * (1 + 1e-9)
+    assert 0 < got["device_ms"] <= got["wall_ms"]

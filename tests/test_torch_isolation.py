@@ -51,7 +51,8 @@ def test_import_loads_no_jax():
         "beats3d_tpu_torch.parallel.eval_sharded, "
         "beats3d_tpu_torch.parallel.train_sharded, "
         "beats3d_tpu_torch.parallel.jobs, beats3d_tpu_torch.parallel.dryrun, "
-        "beats3d_tpu_torch.utils.compile_cache, beats3d_tpu_torch.release\n"
+        "beats3d_tpu_torch.utils.compile_cache, beats3d_tpu_torch.release, "
+        "beats3d_tpu_torch.utils.devtime\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
         "apps.run_live_torch, apps.live_data_convert_torch, "
         "apps.pose_fit_torch, apps.merge_datasets_torch, apps.bz3d_torch, "
@@ -91,7 +92,7 @@ def test_sources_import_no_jax():
                  "parallel/mesh.py", "parallel/launch.py",
                  "parallel/eval_sharded.py", "parallel/train_sharded.py",
                  "parallel/jobs.py", "parallel/dryrun.py",
-                 "utils/compile_cache.py", "release.py"):
+                 "utils/compile_cache.py", "release.py", "utils/devtime.py"):
         assert os.path.join(PKG, name) in files, name
     for path in files:
         with open(path) as f:
