@@ -69,6 +69,7 @@ from .utils.profiler import graph_ms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "models", "flagship")
+SERVING = os.path.join(FLAGSHIP, "m1_serving.npy.gz")
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32, no tensor cores
 BATCH = 16
@@ -83,11 +84,23 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def load_flagship(device):
-    """The committed trained flagship (coarse D=8 T=4 -> fine D=16 T=4)."""
+def load_flagship(device, model_dir=FLAGSHIP, layer_files=None):
+    """The committed trained flagship (coarse D=8 T=4 -> fine D=16 T=4), or
+    the layered model of another ``model_dir``, on ``device``, labels at
+    half resolution; ``layer_files`` as ``LayeredDecisionForest.load``
+    takes it."""
     return LayeredDecisionForest.load(
-        os.path.join(FLAGSHIP, "model_cfg.json"), labels_reduce=2,
-        device=device)
+        os.path.join(model_dir, "model_cfg.json"), labels_reduce=2,
+        device=device, layer_files=layer_files)
+
+
+def load_serving_flagship(device):
+    """The flagship's serving-depth variant on ``device``: the committed
+    coarse layer and configuration with ``m1_serving.npy.gz`` (the fine
+    layer cut to D=13 with refit pdfs by ``scripts.truncate_fine``) as
+    layer 1, the model the JAX package's bench stages from the same
+    files."""
+    return load_flagship(device, layer_files={1: SERVING})
 
 
 @dataclasses.dataclass

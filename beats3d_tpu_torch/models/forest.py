@@ -103,11 +103,14 @@ class DecisionForest:
     @staticmethod
     def load(path: str) -> "DecisionForest":
         """Load a .npy forest, inferring its dims from the array shape.  A
-        forest kept gzipped beside the config (``path + ".gz"``, as the
-        committed flagship's fine layer is) is read when ``path`` is
-        absent."""
-        if not os.path.exists(path) and os.path.exists(path + ".gz"):
-            with gzip.open(path + ".gz", "rb") as f:
+        gzipped forest (a ``path`` ending in ``.gz``, or ``path + ".gz"``
+        when ``path`` is absent, as the committed flagship's fine layer is
+        kept beside its config) is read through gzip."""
+        if not path.endswith(".gz") and not os.path.exists(path) and \
+                os.path.exists(path + ".gz"):
+            path += ".gz"
+        if path.endswith(".gz"):
+            with gzip.open(path, "rb") as f:
                 arr = np.load(io.BytesIO(f.read()))
         else:
             arr = np.load(path)

@@ -59,14 +59,20 @@ class LayeredDecisionForest:
                                              compare=False)
 
     @staticmethod
-    def load(config_path: str, labels_reduce: int = 1,
-             device="cuda") -> "LayeredDecisionForest":
+    def load(config_path: str, labels_reduce: int = 1, device="cuda",
+             layer_files=None) -> "LayeredDecisionForest":
+        """The model of ``config_path`` on ``device``; ``layer_files``
+        ({layer index: path}) reads those layers' forests from other files
+        (the flagship's serving variant: ``{1: "m1_serving.npy.gz"}``),
+        relative paths resolved as the config's own."""
         with open(config_path) as f:
             cfg = json.load(f)
         root = os.path.dirname(os.path.abspath(config_path))
+        layer_files = layer_files or {}
         layers = []
-        for l in cfg["layers"]:
-            flat = DecisionForest.load(os.path.join(root, l["model"])).data
+        for i, l in enumerate(cfg["layers"]):
+            flat = DecisionForest.load(os.path.join(
+                root, layer_files.get(i, l["model"]))).data
             if "filter_model" in l:
                 layers.append(
                     (flat, int(l["filter_model"]), int(l["filter_model_class"]))

@@ -95,12 +95,43 @@ def class_sum(x):
     return s
 
 
+def add_rounded(x, y):
+    """x + y computed in float64 (``x`` float64, ``y`` promoted) and rounded
+    once to float32: one elementwise kernel on a card, which loads, adds
+    and stores in those types."""
+    out = torch.empty(torch.broadcast_shapes(x.shape, y.shape),
+                      dtype=torch.float32, device=x.device)
+    return torch.add(x, y, out=out)
+
+
+def fma(a, b, c):
+    """a * b + c in float32 with one rounding, as XLA's CPU code contracts
+    the gain's products and sums into fused multiply-adds: computed in
+    float64, where the product of two float32 values is exact, then
+    rounded to float32 (the same bits on every device; it can differ from
+    a true fused multiply-add only where the float64 sum itself rounds
+    onto a float32 midpoint)."""
+    return add_rounded(a.to(torch.float64) * b, c)
+
+
+def sum_squares(x):
+    """sum_k x_k^2 over the last axis as XLA's CPU code computes it: the
+    first square rounded, then one fused multiply-add per class, left to
+    right (``fma``'s rounding; the exact float64 squares are made once,
+    so each class costs one kernel, as a float32 sum does)."""
+    sq = x.to(torch.float64).square()
+    s = x[..., 0] * x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = add_rounded(sq[..., k], s)
+    return s
+
+
 def gini_impurity(counts):
     """counts (..., C) float32 -> 1 - sum_k p_k^2.  An empty histogram gets
     a safe denominator; its impurity is masked out by the caller."""
     s = class_sum(counts)[..., None]
     pr = counts / torch.where(s == 0.0, 1.0, s)
-    return 1.0 - class_sum(pr * pr)
+    return 1.0 - sum_squares(pr)
 
 
 def pick_best_step(active_nodes, parent_counts, left, total, props,
@@ -127,8 +158,9 @@ def pick_best_step(active_nodes, parent_counts, left, total, props,
     psum = class_sum(parent_counts)                      # (A,)
 
     p_imp = gini_impurity(parent_counts)
-    remainder = (lsum / psum[None]) * gini_impurity(l) + (
-        rsum / psum[None]) * gini_impurity(r)
+    # one fused multiply-add, as XLA's CPU code computes it (ROADMAP C-w8)
+    remainder = fma(lsum / psum[None], gini_impurity(l),
+                    (rsum / psum[None]) * gini_impurity(r))
     g = p_imp[None] - remainder
     g = torch.where((lsum == 0) | (rsum == 0), 0.0, g)
 

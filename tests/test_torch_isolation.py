@@ -52,7 +52,10 @@ def test_import_loads_no_jax():
         "beats3d_tpu_torch.parallel.train_sharded, "
         "beats3d_tpu_torch.parallel.jobs, beats3d_tpu_torch.parallel.dryrun, "
         "beats3d_tpu_torch.utils.compile_cache, beats3d_tpu_torch.release, "
-        "beats3d_tpu_torch.utils.devtime\n"
+        "beats3d_tpu_torch.utils.devtime, beats3d_tpu_torch.scripts, "
+        "beats3d_tpu_torch.scripts.flagship_v2, "
+        "beats3d_tpu_torch.scripts.truncate_fine, "
+        "beats3d_tpu_torch.scripts.bz3d_session_v2\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
         "apps.run_live_torch, apps.live_data_convert_torch, "
         "apps.pose_fit_torch, apps.merge_datasets_torch, apps.bz3d_torch, "
@@ -61,7 +64,8 @@ def test_import_loads_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'beats3d_tpu' "
-        "or m.startswith('beats3d_tpu.')]\n"
+        "or m.startswith('beats3d_tpu.') or m == 'scripts' "
+        "or m.startswith('scripts.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -92,11 +96,17 @@ def test_sources_import_no_jax():
                  "parallel/mesh.py", "parallel/launch.py",
                  "parallel/eval_sharded.py", "parallel/train_sharded.py",
                  "parallel/jobs.py", "parallel/dryrun.py",
-                 "utils/compile_cache.py", "release.py", "utils/devtime.py"):
+                 "utils/compile_cache.py", "release.py", "utils/devtime.py",
+                 "scripts/__init__.py", "scripts/flagship_v2.py",
+                 "scripts/truncate_fine.py", "scripts/bz3d_session_v2.py"):
         assert os.path.join(PKG, name) in files, name
+    # nor the repository's own scripts package, whose drivers import JAX
+    root_scripts = re.compile(r"^\s*(import scripts\b|from scripts\b)", re.M)
     for path in files:
         with open(path) as f:
-            assert not pattern.search(f.read()), path
+            src = f.read()
+        assert not pattern.search(src), path
+        assert not root_scripts.search(src), path
 
 
 def test_from_numpy_round_trips_flagship(tmp_path):

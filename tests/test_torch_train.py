@@ -21,7 +21,9 @@ from beats3d_tpu.models.forest import DecisionForest as JaxForest
 from beats3d_tpu.models.forest import DecisionTree as JaxTree
 from beats3d_tpu.train import DecisionTreeTrainer as JaxTrainer
 from beats3d_tpu.train import train_forest as jax_train_forest
-from beats3d_tpu.train.trainer import _histogram_step, _histogram_step_from_bits
+from beats3d_tpu.train.trainer import (_histogram_step,
+                                       _histogram_step_from_bits,
+                                       _pick_best_step)
 from beats3d_tpu_torch.data.blocks import CompressedDataset
 from beats3d_tpu_torch.data.dataset import ArrayDataset, write_dataset
 from beats3d_tpu_torch.models.forest import DecisionForest, DecisionTree
@@ -64,6 +66,46 @@ def test_histogram_matches_jax(rng, w2, node_lo):
                                        use_matmul=True, num_props=12, **kw)
     np.testing.assert_array_equal(left.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(total.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("c", [4, 7])
+def test_pick_best_gains_equal_jax(rng, c):
+    """Every proposal's gain equals the JAX trainer's bit for bit (XLA's CPU
+    code fuses the squares' sum and the remainder into multiply-adds; the
+    port computes them so, ROADMAP C-w8): each proposal alone through
+    pick_best_step against _pick_best_step, on random histograms with
+    empty classes and an empty side; then a block of all of them, whose
+    best split must be the same proposal.  Rounded any other way, gains of
+    proposals that split a node the same way break their tie differently
+    (tests/test_torch_truncate.py's toy forest diverged at level 4)."""
+    a, p, w2 = 24, 16, 32
+    active = torch.as_tensor(rng.choice(w2, a, replace=False).astype(np.int64))
+    total = rng.integers(0, 400, (w2, c)) * (rng.random((w2, c)) < 0.7)
+    left = (rng.random((p, w2, c)) * (total[None] + 1)).astype(np.int64)
+    left = np.minimum(left, total[None])
+    left[0] = 0                                     # one side empty
+    parent = total[active.numpy()].astype(np.float32)
+    props = rng.normal(0, 100, (p, 5)).astype(np.float32)
+    init = (torch.full((a,), -1.0), torch.zeros((a, 5)),
+            torch.zeros((a, c)), torch.zeros((a, c)))
+
+    def both(lo, hi):
+        got = trainer.pick_best_step(
+            active, torch.as_tensor(parent), torch.as_tensor(left[lo:hi]),
+            torch.as_tensor(total), torch.as_tensor(props[lo:hi]), *init,
+            w2=w2, parent_lo=0)
+        want = _pick_best_step(
+            jnp.asarray(active.numpy().astype(np.int32)), jnp.asarray(parent),
+            jnp.asarray(left[lo:hi]), jnp.asarray(total),
+            jnp.asarray(props[lo:hi]), *[jnp.asarray(x.numpy()) for x in init],
+            w2=w2, parent_lo=0)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        return got[0]
+
+    gains = torch.stack([both(j, j + 1) for j in range(p)])
+    assert (gains[0] == 0).all() and (gains > 0).any()
+    both(0, p)
 
 
 def _one_tree_inputs(rng):
