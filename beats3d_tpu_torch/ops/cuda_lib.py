@@ -216,6 +216,9 @@ def _bind(lib):
     lib.b3d_stream_create.restype = i
     lib.b3d_stream_destroy.argtypes = [vp]
     lib.b3d_stream_destroy.restype = i
+    # the frame programs' stage stamps (utils/profiler.py:StageClock)
+    lib.b3d_stage_stamp.argtypes = [vp, vp, vp, i, i, i]
+    lib.b3d_stage_stamp.restype = i
     lib.b3d_error_string.argtypes = [i]
     lib.b3d_error_string.restype = ctypes.c_char_p
     return lib

@@ -130,7 +130,7 @@ class BeatsApp:
             HandState(make(self.cfg.midi_base_notes[1]), on_fn, off_fn, is_rh=False),
         ]
 
-        self.timer = ProfileTimer()
+        self.timer = ProfileTimer()         # the spans of tick()
         self.frame_times = FrameTimeLog()
         self.frame_num = 0
         self.last_out = None
@@ -143,49 +143,54 @@ class BeatsApp:
 
     # -- per-frame ------------------------------------------------------------
     def tick(self, frame) -> Optional[dict]:
+        """One camera frame (span ``tick``; its children ``upload``,
+        ``plane calibration``, ``fetch``, ``frame_step`` and
+        ``host update``)."""
         self.frame_times.tick()
-        self.timer.record("upload")
-        depth = self._upload(frame.depth)
+        with self.timer.span("tick"):
+            return self._tick(frame)
+
+    def _tick(self, frame) -> Optional[dict]:
+        timer = self.timer
+        with timer.span("upload"):
+            depth = self._upload(frame.depth)
 
         if self.frame_num < self.cfg.warmup_frames:
             self.frame_num += 1
-            self.timer.reset()
             return None
 
         if not self.calibrated_plane.is_set() or self.calibrate_next_frame:
-            self.timer.record("plane calibration")
-            pts = points.deproject_points(depth, self.pipeline.pp,
-                                          self.pipeline.fx)
-            start = (
-                self.calibrated_plane.get_mat()
-                if self.calibrated_plane.is_set()
-                else None
-            )
-            self.calibrated_plane.make(pts, start_mat=start)
-            self.calibrate_next_frame = False
+            with timer.span("plane calibration"):
+                pts = points.deproject_points(depth, self.pipeline.pp,
+                                              self.pipeline.fx)
+                start = (
+                    self.calibrated_plane.get_mat()
+                    if self.calibrated_plane.is_set()
+                    else None
+                )
+                self.calibrated_plane.make(pts, start_mat=start)
+                self.calibrate_next_frame = False
 
         # live tunables that feed the device program
         self.pipeline.group_min_size = self.cfg.group_min_size
 
         # pipelined: the previous frame's one host copy is queued before
         # this frame's program, so it waits for that frame only
-        fetched = (self._fetch(self._pending)
-                   if self.cfg.pipelined and self._pending is not None
-                   else None)
-        self.timer.record("frame_step")
-        out = self.pipeline(depth, self.calibrated_plane.get_mat())
+        fetched = None
+        if self.cfg.pipelined and self._pending is not None:
+            with timer.span("fetch"):
+                fetched = self._fetch(self._pending)
+        with timer.span("frame_step"):
+            out = self.pipeline(depth, self.calibrated_plane.get_mat())
+            if self.cfg.pipelined:
+                # Consume the PREVIOUS frame's results.
+                out, self._pending = self._pending, out
+                self.frame_num += 1
+        if out is None:
+            return None
 
-        if self.cfg.pipelined:
-            # Consume the PREVIOUS frame's results.
-            out, self._pending = self._pending, out
-            self.frame_num += 1
-            if out is None:
-                self.timer.stop()
-                return None
-
-        self.timer.record("host update")
-        self._host_update(out, fetched)
-        self.timer.stop()
+        with timer.span("host update"):
+            self._host_update(out, fetched)
 
         if not self.cfg.pipelined:
             self.frame_num += 1
@@ -212,26 +217,31 @@ class BeatsApp:
     def _host_update(self, out, fetched=None):
         """Tap state machines + MIDI from one frame's outputs, fetched to
         the host in one copy (``fetched``: that copy, already queued), kept
-        as ``host_out`` (the viewer reads it)."""
+        as ``host_out`` (the viewer reads it).  Spans ``wait`` (for the
+        copy) and ``taps``."""
+        host, arrived = fetched or self._fetch(out)
+        with self.timer.span("wait"):
+            if arrived is not None:
+                arrived.synchronize()
         shape = out["heights"].shape
         n = out["heights"].numel()
-        host, arrived = fetched or self._fetch(out)
-        if arrived is not None:
-            arrived.synchronize()
-        flat = host.numpy().copy()
-        heights = flat[:n].reshape(shape)
-        valid = flat[n:2 * n].reshape(shape) != 0
-        self.host_out = dict(heights=heights, tip_valid=valid,
-                             guard_muted=flat[2 * n:] != 0)
-        for hand_idx in range(2):
-            # propagate live tunables BEFORE the tap update (3d_bz.py:505-507)
-            for f in self.hand_states[hand_idx].fingertips:
-                f.velocity_sensitive = self.cfg.velocity_sensitive
-                f.min_velocity = self.cfg.min_velocity
-                f.max_velocity = self.cfg.max_velocity
-            self.hand_states[hand_idx].update(
-                heights[hand_idx], valid[hand_idx], self.cfg.z_thresh_offset,
-            )
+        with self.timer.span("taps"):
+            flat = host.numpy().copy()
+            heights = flat[:n].reshape(shape)
+            valid = flat[n:2 * n].reshape(shape) != 0
+            self.host_out = dict(heights=heights, tip_valid=valid,
+                                 guard_muted=flat[2 * n:] != 0)
+            for hand_idx in range(2):
+                # propagate live tunables BEFORE the tap update
+                # (3d_bz.py:505-507)
+                for f in self.hand_states[hand_idx].fingertips:
+                    f.velocity_sensitive = self.cfg.velocity_sensitive
+                    f.min_velocity = self.cfg.min_velocity
+                    f.max_velocity = self.cfg.max_velocity
+                self.hand_states[hand_idx].update(
+                    heights[hand_idx], valid[hand_idx],
+                    self.cfg.z_thresh_offset,
+                )
 
     def flush(self) -> Optional[dict]:
         """Drain the pending frame (pipelined mode) at stream end."""

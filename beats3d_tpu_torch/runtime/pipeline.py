@@ -34,6 +34,7 @@ model, ``"torch"`` (their plain versions) for a CPU model.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 
 from ..models.layered import LayeredDecisionForest, run_layered
 from ..ops import components, forest_eval_cuda, meanshift, points, preproc_cuda
+from ..utils.profiler import TIMER, StageClock
 from . import graph_cond
 from .graph_cond import cond
 
@@ -51,6 +53,24 @@ MAX_UINT16 = 65535
 # LayeredDecisionForest.pallas_supported); a wider model runs the XLA
 # evaluator there, unguarded.
 GUARD_CONDITION_ROWS = 128
+
+# The stage clock of the frame graph this thread is capturing (set by
+# FrameGraph for the length of its capture).
+_stamping = threading.local()
+
+
+def stage(name: Optional[str]):
+    """A stage boundary of a frame program: stage ``name`` starts here
+    (None: the program ends here).  Under a :class:`FrameGraph` capture it
+    captures a stamp (:class:`..utils.profiler.StageClock`), so that each
+    replay sums its stages' device time on the card; eagerly it does
+    nothing.  The stages partition a replay: ``front`` (K2, grouping, crop
+    origins), ``eval`` (stencils or crops, K1, label placing and
+    unmirroring, in each cond body), ``meanshift`` (mean shift, the
+    screen-space modes, the rescue's merge) and ``heights``."""
+    clock = getattr(_stamping, "clock", None)
+    if clock is not None:
+        clock.stamp(name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,6 +336,7 @@ def _full_path(pipe, depth1, grown, keep=None):
     (B, 2, C, 2), guard_muted (B, 2).  ``keep`` (B,) bool: the frames whose
     results will be used; the others' stencils are zeroed, so K1 skips
     their pixels (their results are garbage the caller drops)."""
+    stage("eval")
     cfg = pipe.cfg
     b, h, w = depth1.shape
     r = cfg.labels_reduce
@@ -325,6 +346,7 @@ def _full_path(pipe, depth1, grown, keep=None):
     lab, gf = _eval_layers(hand.reshape(2 * b, h, w), pipe, cfg,
                            _scale(w, cfg))
     labels = _unmirror(lab.reshape(b, 2, h // r, w // r))
+    stage("meanshift")
     return labels, _run_ms(labels, pipe), gf.reshape(b, 2)
 
 
@@ -333,6 +355,7 @@ def _crop_path(pipe, depth1, grown, oys, oxs, too_big=None):
     ``too_big`` is set get zeroed crops (K1 skips them; the caller takes
     their results from the full path).  Mean shift runs on the crops; a
     mirrored image yields the exactly mirrored mode."""
+    stage("eval")
     cfg = pipe.cfg
     b, h, w = depth1.shape
     r = cfg.labels_reduce
@@ -344,6 +367,7 @@ def _crop_path(pipe, depth1, grown, oys, oxs, too_big=None):
                           _scale(w, cfg))
     lc = lc.reshape(b, 2, ch // r, cw // r)
     labels = _unmirror(_place(lc, oys, oxs, r, h // r, w // r))
+    stage("meanshift")
     means = _screen_means(_run_ms(lc, pipe), oys, oxs, r, w // r)
     return labels, means, gf.reshape(b, 2)
 
@@ -384,6 +408,7 @@ def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
     cfg = pipe.cfg
     h, w = raw_depth.shape
     raw = raw_depth[None]
+    stage("front")
     depth1, grown, g_info, groups_small = _front(pipe, raw, plane_mat)
 
     def full():
@@ -398,9 +423,11 @@ def frame_step(pipe: "FramePipeline", raw_depth, plane_mat):
             return _crop_path(pipe, depth1, grown, oys, oxs)
 
         res = cond(too_big[0], full, crop)
+    stage("heights")
     out = _outputs(pipe, raw, plane_mat, *res, g_info)
     out = {k: v[0] for k, v in out.items()}
     out["groups_small"] = groups_small[0].to(torch.uint16)
+    stage(None)
     return out
 
 
@@ -421,6 +448,7 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
     """
     cfg = pipe.cfg
     b, h, w = raw_depth.shape
+    stage("front")
     depth1, grown, g_info, _ = _front(pipe, raw_depth, plane_mat)
 
     def full():
@@ -466,7 +494,10 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
                     for r, c in zip(rescued, cropped))
 
             res = cond(nbad <= fb, crop_then_rescue, full)
-    return _outputs(pipe, raw_depth, plane_mat, *res, g_info)
+    stage("heights")
+    out = _outputs(pipe, raw_depth, plane_mat, *res, g_info)
+    stage(None)
+    return out
 
 
 # The wrappers of the kernels the frame programs launch: a FrameGraph reads
@@ -482,8 +513,8 @@ class FrameGraph:
     replayed per call: the counterpart of ``jax.jit`` over the frame, its
     conds conditional nodes (:mod:`graph_cond`).
 
-    ``depth`` and ``plane`` are the static inputs the caller writes before
-    each replay (graphs of one shape share them); the pipeline's ``gms``
+    ``depth`` and ``plane`` are the static inputs that :meth:`replay`
+    writes (graphs of one shape share them); the pipeline's ``gms``
     scalar is read in place.  The program is warmed up once on a side
     stream, with synchronising calls made errors
     (``torch.cuda.set_sync_debug_mode``), then captured; a failed capture
@@ -494,10 +525,14 @@ class FrameGraph:
     ``launches``: the wrappers' launches per replay of each body, by body
     (``""`` outside every cond) and wrapper name; ``replays``: the replays
     so far; :meth:`body_replays` reads each body's replays from the card.
+    The capture holds the program's stage stamps (:func:`stage`), which
+    add each replay's stage times to the registry of
+    :func:`..utils.profiler.stage_ms` on the card.
     """
 
     def __init__(self, pipe, program, depth, plane):
         dev = depth.device
+        self.depth, self.plane = depth, plane
         mode = torch.cuda.get_sync_debug_mode()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -508,22 +543,36 @@ class FrameGraph:
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(dev).wait_stream(side)
+        # the stamps write the clock's tensors at each replay: kept as long
+        # as the graph
+        self.clock = StageClock(program.__name__, dev)
         self.graph = torch.cuda.CUDAGraph()
         with graph_cond.graph(self.graph, FRAME_KERNELS,
                               capture_error_mode="thread_local") as capture:
-            self.out = program(pipe, depth, plane)
+            _stamping.clock = self.clock
+            try:
+                self.out = program(pipe, depth, plane)
+            finally:
+                _stamping.clock = None
         self.launches = capture.launches
         self.pool = capture.pool            # the graph's memory
         self._bodies = capture.bodies
         self._taken = capture.taken
         self.replays = 0
 
-    def replay(self):
-        """Run the graph on the current stream; returns its outputs cloned,
-        so that they outlive the next replay."""
-        self.graph.replay()
+    def replay(self, depth=None, plane=None):
+        """Write ``depth`` and ``plane``, when given, into the static inputs
+        and run the graph on the current stream (span ``frame.replay``);
+        returns its outputs cloned, so that they outlive the next replay
+        (span ``frame.clone``)."""
+        with TIMER.span("frame.replay"):
+            if depth is not None:
+                self.depth.copy_(depth)
+                self.plane.copy_(plane)
+            self.graph.replay()
         self.replays += 1
-        return {k: v.clone() for k, v in self.out.items()}
+        with TIMER.span("frame.clone"):
+            return {k: v.clone() for k, v in self.out.items()}
 
     def body_replays(self):
         """{body: replays so far} (a host read of the card's counters, for
@@ -614,21 +663,17 @@ class FramePipeline:
             device=self.device, dtype=torch.float32).contiguous()
 
     def _replay(self, program, depth, plane):
-        """Write the static inputs for depth's shape and replay program's
-        graph, capturing it on first use."""
+        """Replay program's graph for depth's shape on depth and plane,
+        capturing it on first use."""
         shape = tuple(depth.shape)
-        if shape not in self._inputs:
-            self._inputs[shape] = (
-                torch.zeros(shape, dtype=torch.int32, device=self.device),
-                torch.eye(4, dtype=torch.float32, device=self.device))
-        static_depth, static_plane = self._inputs[shape]
-        static_depth.copy_(depth)
-        static_plane.copy_(plane)
         key = (program.__name__, shape)
         if key not in self.graphs:
-            self.graphs[key] = FrameGraph(self, program, static_depth,
-                                          static_plane)
-        return self.graphs[key].replay()
+            if shape not in self._inputs:
+                self._inputs[shape] = (
+                    torch.zeros(shape, dtype=torch.int32, device=self.device),
+                    torch.eye(4, dtype=torch.float32, device=self.device))
+            self.graphs[key] = FrameGraph(self, program, *self._inputs[shape])
+        return self.graphs[key].replay(depth, plane)
 
     @property
     def replays(self) -> int:
@@ -644,11 +689,12 @@ class FramePipeline:
 
     def batch(self, raw_depths, plane_mat):
         """(B, H, W) frames with one shared plane -> see
-        :func:`frame_step_batched`."""
-        depth, plane = self.as_depth(raw_depths), self._plane(plane_mat)
-        if self.device.type != "cuda":
-            return frame_step_batched(self, depth, plane)
-        return self._replay(frame_step_batched, depth, plane)
+        :func:`frame_step_batched` (span ``batch``)."""
+        with TIMER.span("batch"):
+            depth, plane = self.as_depth(raw_depths), self._plane(plane_mat)
+            if self.device.type != "cuda":
+                return frame_step_batched(self, depth, plane)
+            return self._replay(frame_step_batched, depth, plane)
 
     def batch_sharded(self, raw_depths, plane_mat, mesh, axis: str = "data"):
         """The throughput path on a mesh of ranks: frames sharded over

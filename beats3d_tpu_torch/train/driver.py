@@ -12,6 +12,8 @@ import torch
 
 from ..models.forest import DecisionForest, DecisionTree
 from ..ops.forest_eval_cuda import evaluate_forest_cuda
+from ..utils.profiler import TIMER
+from . import trainer as trainer_mod
 from .trainer import DecisionTreeTrainer
 
 
@@ -33,14 +35,17 @@ def evaluate_tree_accuracy(tree_or_forest_flat: np.ndarray, test_depth,
     single = flat.ndim == 2
     if single:
         flat = flat[None]
-    forest = torch.as_tensor(np.ascontiguousarray(flat, dtype=np.float32),
-                             device=device)
+    with trainer_mod.sync():
+        forest = torch.as_tensor(
+            np.ascontiguousarray(flat, dtype=np.float32), device=device)
     match = labeled = 0
     for lo in range(0, test_depth.shape[0], chunk):
-        d = torch.as_tensor(test_depth[lo : lo + chunk].astype(np.int32),
-                            device=device)
+        with trainer_mod.sync():
+            d = torch.as_tensor(test_depth[lo : lo + chunk].astype(np.int32),
+                                device=device)
         pred = evaluate_forest_cuda(d, forest, write_all_eligible=not single)
-        pred = pred.cpu().numpy()
+        with trainer_mod.sync():
+            pred = pred.cpu().numpy()
         truth = test_labels[lo : lo + chunk]
         match += int(np.sum(pred == truth))
         labeled += int(np.sum(truth > 0))
@@ -123,9 +128,11 @@ def train_forest(
 
     for i in range(start, trees_to_try):
         log(f"training candidate tree {i + 1}/{trees_to_try}")
-        trainer.train(train_data, tree, rng)
-        acc = evaluate_tree_accuracy(tree.data, test_depth, test_labels,
-                                     device=device)
+        with TIMER.span("train.tree"):
+            trainer.train(train_data, tree, rng)
+            with TIMER.span("train.score"):
+                acc = evaluate_tree_accuracy(tree.data, test_depth,
+                                             test_labels, device=device)
         log(f"  pct. matching pixels: {acc:.4f}")
 
         copy_idx = -1
@@ -152,8 +159,9 @@ def train_forest(
     if ckpt and os.path.exists(ckpt):
         os.remove(ckpt)  # a finished run must not seed the next fresh one
 
-    acc = evaluate_tree_accuracy(forest.data, test_depth, test_labels,
-                                 device=device)
+    with TIMER.span("train.score"):
+        acc = evaluate_tree_accuracy(forest.data, test_depth, test_labels,
+                                     device=device)
     log(f"FOREST pct. matching pixels: {acc:.4f}")
     forest.pct_match = acc
     return forest

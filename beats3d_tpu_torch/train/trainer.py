@@ -46,9 +46,19 @@ import torch
 from ..models.forest import DecisionTree
 from ..ops.train_features import pixel_features
 from ..ops.train_features_cuda import train_feature_bits_cuda
+from ..utils.profiler import TIMER
 from .proposals import make_random_features
 
 CUTOFF_THRESH = 0.999  # the reference trainer's purity cutoff
+
+
+def sync():
+    """The span (``train.sync``) around each call of the trainer that makes
+    the host wait for the card: a copy to or from the host, ``nonzero``, a
+    boolean-mask index, ``bincount``.  Its count is the calls that wait (a
+    ``bincount`` waits more than once), its time the waits' (on the CPU
+    the same calls wait for nothing)."""
+    return TIMER.span("train.sync")
 
 
 # ---------------------------------------------------------------------------
@@ -72,9 +82,11 @@ def histogram_step(bits, labels, nodes, *, num_classes: int, w2: int,
     b, p32, h, w = bits.shape
     node = nodes.reshape(-1).to(torch.int64)
     m_local = node - node_lo // 2
-    idx = torch.nonzero((node >= 0) & (m_local >= 0) & (m_local < w2)).reshape(-1)
+    with sync():
+        idx = torch.nonzero(
+            (node >= 0) & (m_local >= 0) & (m_local < w2)).reshape(-1)
     col = m_local[idx] * c + labels.reshape(-1)[idx].to(torch.int64)
-    total = torch.bincount(col, minlength=bins)
+    total = _bincount(col, bins)
     words = bits.reshape(b, p32, h * w)[idx // (h * w), :, idx % (h * w)]
     left = torch.zeros(num_props * bins, dtype=torch.int64, device=dev)
     shifts = torch.arange(32, dtype=torch.int64, device=dev)
@@ -82,8 +94,20 @@ def histogram_step(bits, labels, nodes, *, num_classes: int, w2: int,
         n_in = min(32, num_props - 32 * wd)
         is_left = ((words[:, wd][None, :] >> shifts[:n_in, None]) & 1) == 1
         key = (shifts[:n_in, None] + 32 * wd) * bins + col[None, :]
-        left += torch.bincount(key[is_left], minlength=num_props * bins)
+        with sync():
+            key = key[is_left]
+        left += _bincount(key, num_props * bins)
     return left.view(num_props, w2, c), total.view(w2, c)
+
+
+def _bincount(x, minlength: int):
+    """``torch.bincount(x, minlength=minlength)`` of a 1-d int64 tensor.
+    On a card it reads values of x back to the host (span ``train.sync``),
+    except for an empty x, whose counts are zeros with no wait."""
+    if x.numel() == 0:
+        return torch.zeros(minlength, dtype=torch.int64, device=x.device)
+    with sync():
+        return torch.bincount(x, minlength=minlength)
 
 
 def class_sum(x):
@@ -188,7 +212,8 @@ def advance_step(depth, nodes, level_params, level_status):
     _, h, w = depth.shape
     depth_flat = depth.reshape(-1)
     nodes_flat = nodes.reshape(-1).to(torch.int64)
-    idx = torch.nonzero(nodes_flat >= 0).reshape(-1)
+    with sync():
+        idx = torch.nonzero(nodes_flat >= 0).reshape(-1)
     node = nodes_flat[idx]
     pr = level_params[node]                              # (A, 5)
     rem = idx % (h * w)
@@ -256,7 +281,9 @@ class DecisionTreeTrainer:
 
     def _upload(self, arr, dtype):
         """Host numpy block -> ``dtype`` tensor on the trainer's device."""
-        return torch.as_tensor(np.array(arr)).to(self.device).to(dtype)
+        with sync():
+            dev = torch.as_tensor(np.array(arr)).to(self.device)
+        return dev.to(dtype)
 
     # -- one tree ------------------------------------------------------------
     def train(self, dataset, tree: DecisionTree,
@@ -349,11 +376,13 @@ class DecisionTreeTrainer:
         for level in range(d):
             if len(active) == 0:
                 break
-            with torch.profiler.record_function(f"train level {level}"):
+            with TIMER.span("train.level"):
                 a = len(active)
-                active_t = torch.as_tensor(active, device=dev)
-                parent_counts = torch.as_tensor(
-                    node_counts[active].astype(np.float32), device=dev)
+                with sync():
+                    active_t = torch.as_tensor(active, device=dev)
+                with sync():
+                    parent_counts = torch.as_tensor(
+                        node_counts[active].astype(np.float32), device=dev)
 
                 best_gain = torch.full((a,), -1.0, dtype=torch.float32,
                                        device=dev)
@@ -380,8 +409,10 @@ class DecisionTreeTrainer:
                     else:
                         props_np = make_random_features(
                             self.proposals_per_block, rng)
-                    props = torch.as_tensor(np.ascontiguousarray(
-                        props_np[p_lo:p_lo + p], dtype=np.float32), device=dev)
+                    with sync():
+                        props = torch.as_tensor(np.ascontiguousarray(
+                            props_np[p_lo:p_lo + p], dtype=np.float32),
+                            device=dev)
 
                     # split bits once per (proposal block, image block),
                     # reused across node blocks when the data is resident
@@ -401,53 +432,64 @@ class DecisionTreeTrainer:
                                            device=dev)
                         total = torch.zeros((w2, c), dtype=torch.int64,
                                             device=dev)
-                        for ib in range(self.num_image_blocks):
-                            d_b, l_b, n_b = fetch(ib)
-                            l_i, t_i = histogram_step(
-                                feature_bits(ib, d_b, n_b), l_b, n_b,
-                                num_classes=c, w2=w2, node_lo=lo, num_props=p)
-                            left += l_i
-                            total += t_i
+                        with TIMER.span("train.histogram"):
+                            for ib in range(self.num_image_blocks):
+                                d_b, l_b, n_b = fetch(ib)
+                                l_i, t_i = histogram_step(
+                                    feature_bits(ib, d_b, n_b), l_b, n_b,
+                                    num_classes=c, w2=w2, node_lo=lo,
+                                    num_props=p)
+                                left += l_i
+                                total += t_i
 
                         best = (best_gain, best_params, best_left, best_right)
-                        if mesh is None:
-                            best = pick_best_step(
-                                active_t, parent_counts, left, total, props,
-                                *best, w2=w2, parent_lo=lo // 2)
-                        else:
-                            best = block_step(
-                                left, total, props, active_t, parent_counts,
-                                best, mesh, parent_lo=lo // 2, w2=w2)
+                        with TIMER.span("train.gains"):
+                            if mesh is None:
+                                best = pick_best_step(
+                                    active_t, parent_counts, left, total,
+                                    props, *best, w2=w2, parent_lo=lo // 2)
+                            else:
+                                best = block_step(
+                                    left, total, props, active_t,
+                                    parent_counts, best, mesh,
+                                    parent_lo=lo // 2, w2=w2)
                         best_gain, best_params, best_left, best_right = best
 
                 # -- finalize this level (host, few KB) ----------------------
-                with torch.profiler.record_function("finalize"):
-                    bg = best_gain.cpu().numpy()
-                    bp = best_params.cpu().numpy()
-                    bl = best_left.cpu().numpy()
-                    br = best_right.cpu().numpy()
+                with TIMER.span("finalize"):
+                    host = []
+                    for t in (best_gain, best_params, best_left, best_right):
+                        with sync():
+                            host.append(t.cpu().numpy())
                     next_active = self._finalize_level(
-                        tree, level, active, node_counts, bg, bp, bl, br, c, d)
+                        tree, level, active, node_counts, *host, c, d)
 
                 if level == d - 1 or not next_active:
                     break
 
                 # -- advance pixels through the freshly written level --------
-                lvl = tree.data[(1 << level) - 1 : (1 << (level + 1)) - 1]
-                level_params = torch.as_tensor(
-                    np.ascontiguousarray(lvl[:, 0:5]), device=dev)
-                level_status = torch.as_tensor(
-                    np.floor(lvl[:, 5:7]).astype(np.int64), device=dev)
-                for ib in range(self.num_image_blocks):
-                    d_b, _, n_b = fetch(ib)
-                    advanced = advance_step(d_b, n_b, level_params,
-                                            level_status)
-                    if resident:
-                        nodes_blocks[ib] = advanced
-                    elif codec_stores is not None:
-                        codec_stores[2].write_block(ib, advanced.cpu().numpy())
-                    else:
-                        nodes_store.write_block(ib, advanced.cpu().numpy())
+                with TIMER.span("train.advance"):
+                    lvl = tree.data[(1 << level) - 1 : (1 << (level + 1)) - 1]
+                    with sync():
+                        level_params = torch.as_tensor(
+                            np.ascontiguousarray(lvl[:, 0:5]), device=dev)
+                    with sync():
+                        level_status = torch.as_tensor(
+                            np.floor(lvl[:, 5:7]).astype(np.int64),
+                            device=dev)
+                    for ib in range(self.num_image_blocks):
+                        d_b, _, n_b = fetch(ib)
+                        advanced = advance_step(d_b, n_b, level_params,
+                                                level_status)
+                        if resident:
+                            nodes_blocks[ib] = advanced
+                            continue
+                        with sync():
+                            advanced = advanced.cpu().numpy()
+                        if codec_stores is not None:
+                            codec_stores[2].write_block(ib, advanced)
+                        else:
+                            nodes_store.write_block(ib, advanced)
                 active = np.array(sorted(next_active), dtype=np.int64)
 
         return tree

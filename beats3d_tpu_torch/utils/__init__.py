@@ -1,5 +1,5 @@
 from .profiler import ProfileTimer
 from .intrinsics import CameraIntrinsics
-from .logging import get_logger, MetricsLog
+from .logging import get_logger
 
-__all__ = ["ProfileTimer", "CameraIntrinsics", "get_logger", "MetricsLog"]
+__all__ = ["ProfileTimer", "CameraIntrinsics", "get_logger"]

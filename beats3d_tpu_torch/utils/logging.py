@@ -1,6 +1,6 @@
 # Copied from beats3d_tpu/utils/logging.py (host only).
 """Structured logging (the reference has bare prints; SURVEY.md §5.5 calls for
-structured logging + live metrics as first-class outputs)."""
+structured logging as a first-class output)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,6 @@ import json
 import logging
 import sys
 import time
-from typing import Optional
 
 
 def get_logger(name: str = "beats3d", level: int = logging.INFO,
@@ -40,31 +39,3 @@ class _JsonFormatter(logging.Formatter):
         if hasattr(record, "metrics"):
             obj["metrics"] = record.metrics
         return json.dumps(obj)
-
-
-class MetricsLog:
-    """Periodic counters (fps, latency, note events) emitted as log records —
-    the headless analogue of the reference's imgui stats windows."""
-
-    def __init__(self, logger: Optional[logging.Logger] = None,
-                 every_s: float = 5.0):
-        self.logger = logger or get_logger()
-        self.every_s = every_s
-        self._last = time.perf_counter()
-        self._frames = 0
-        self._lat_sum = 0.0
-
-    def frame(self, latency_s: float = 0.0):
-        self._frames += 1
-        self._lat_sum += latency_s
-        now = time.perf_counter()
-        if now - self._last >= self.every_s and self._frames:
-            fps = self._frames / (now - self._last)
-            lat = self._lat_sum / self._frames * 1e3
-            self.logger.info(
-                "fps=%.1f mean_latency_ms=%.2f", fps, lat,
-                extra={"metrics": {"fps": fps, "latency_ms": lat}},
-            )
-            self._last = now
-            self._frames = 0
-            self._lat_sum = 0.0

@@ -424,11 +424,12 @@ def kernel_device_ms(prof, needle):
 
 def device_ops(prof, ranges=()):
     """(self device us, key_averages entry) of each device operation name
-    (kernels, copies, sets) of a torch.profiler window.  ``ranges``: name
-    prefixes of record_function ranges, whose device-side spans are not
-    operations."""
+    (kernels, copies, sets) of a torch.profiler window.  The device-side
+    spans of record_function ranges (the program's spans among them) are
+    not operations; ``ranges``: further name prefixes to leave out."""
     ops = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
            and not e.key.startswith(tuple(ranges))]
     return [(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)), e) for e in ops]
@@ -1295,17 +1296,19 @@ def train_d16(train, test, dev, log):
 
 
 def level_kernel_ms(prof, needle, path):
-    """Per ``train level N`` range of a profiled trainer: (launches, device
-    ms) of the kernels whose name holds ``needle``, each kernel put in the
-    level whose range holds its launch (the runtime call of the same
-    correlation id), from the chrome trace written to ``path``."""
+    """Per ``train.level`` range of a profiled candidate tree (level N is
+    the tree's N-th range in time): (launches, device ms) of the kernels
+    whose name holds ``needle``, each kernel put in the level whose range
+    holds its launch (the runtime call of the same correlation id), from
+    the chrome trace written to ``path``."""
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     os.remove(path)
-    levels = sorted((e["ts"], e["ts"] + e["dur"], int(e["name"].split()[-1]))
-                    for e in events if e.get("cat") == "user_annotation"
-                    and e.get("name", "").startswith("train level "))
+    levels = [(a, b, n) for n, (a, b) in enumerate(sorted(
+        (e["ts"], e["ts"] + e["dur"]) for e in events
+        if e.get("cat") == "user_annotation"
+        and e.get("name") == "train.level"))]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
@@ -1368,7 +1371,7 @@ def phase_train(intrin, dev, smi):
         in_place[name] = dict(launches=n, device_ms_per_candidate_tree=(
             n * ms if n else 0.0), device_ms_per_launch=ms)
     in_place["window"] = device_profile(prof, 1, state["wall_ms"],
-                                        ("train level", "finalize"))
+                                        ("train.", "finalize"))
     in_place["b4_per_level"] = level_kernel_ms(
         prof, "train_feature_bits_kernel",
         os.path.join(HERE, "build", f"train_trace_{os.getpid()}.json"))

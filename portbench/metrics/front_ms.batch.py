@@ -1,0 +1,12 @@
+"""front_ms.batch: device ms per replay of the batched call's frame program
+(``frame_step_batched``) in its ``front`` stage, from the program's stage
+stamps (the registry that ``beats3d_tpu_torch.utils.profiler.stage_ms``
+reads), over every replay of the run."""
+
+from portbench.lib import stages
+
+
+def read(rec):
+    if "batch" not in rec:
+        return None
+    return stages.stage_ms("frame_step_batched", "front")

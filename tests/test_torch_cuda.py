@@ -1444,3 +1444,136 @@ def test_measure_device_ms_on_k2_graph_replay(cuda_dev, tmp_path, monkeypatch):
     # busy is exact (integer ns); key_averages sums float us
     assert got["device_ms"] * iters <= summed * (1 + 1e-9)
     assert 0 < got["device_ms"] <= got["wall_ms"]
+
+
+# --- stage stamps and the trainer's waits (utils/profiler.py) --------------
+
+@pytest.mark.cuda
+def test_stamped_graphs_match_unstamped(cuda_dev, bench, monkeypatch):
+    """The stage stamps change no output: the live frame (16 scenes and an
+    oversized frame) and the batched call (clean, one oversized frame)
+    replayed from stamped graphs equal the replays of graphs captured with
+    ``stage`` a no-op, bit for bit; the stamped replays reach the
+    registry, four stages a program."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+    from beats3d_tpu_torch.utils import profiler
+
+    big = kernel_bench.oversized(bench.scenes[1], bench.intrin)
+    frames = list(bench.frames) + [bench.pipe.as_depth(big)]
+    batches = [bench.frames, bench.frames.clone()]
+    batches[1][1] = frames[-1]
+    stamped = pl.FramePipeline(bench.model, bench.intrin)
+    profiler.reset_stages()
+    want = [stamped(d, bench.plane) for d in frames]
+    want_b = [stamped.batch(b, bench.plane) for b in batches]
+    stages = profiler.stage_ms()
+    for name in ("frame_step", "frame_step_batched"):
+        assert list(stages[name]) == ["front", "eval", "meanshift", "heights"]
+        assert all(ms > 0 for ms in stages[name].values()), stages
+    monkeypatch.setattr(pl, "stage", lambda name: None)
+    bare = pl.FramePipeline(bench.model, bench.intrin)
+    for i, d in enumerate(frames):
+        _assert_same(bare(d, bench.plane), want[i], f"frame {i}")
+    for i, b in enumerate(batches):
+        _assert_same(bare.batch(b, bench.plane), want_b[i], f"batch {i}")
+    after = profiler.stage_ms()                 # no stamp ran since
+    for name, ms in stages.items():
+        assert after[name] == pytest.approx(ms), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_stage_sums_match_graph_time(cuda_dev, bench, batched):
+    """The four stages partition a replay: their device ms per replay,
+    summed, are within 10 % of the graph's own time per replay (50
+    back-to-back replays between two CUDA events, as graph_ms times a
+    graph)."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+    from beats3d_tpu_torch.utils import profiler
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    if batched:
+        pipe.batch(bench.frames, bench.plane)
+        name, shape = "frame_step_batched", tuple(bench.frames.shape)
+    else:
+        pipe(bench.frames[3], bench.plane)
+        name, shape = "frame_step", tuple(bench.frames.shape[1:])
+    graph = pipe.graphs[(name, shape)].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    profiler.reset_stages()
+    n = 50
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    stages = profiler.stage_ms()[name]
+    assert sum(stages.values()) == pytest.approx(t0.elapsed_time(t1) / n,
+                                                 rel=0.1), stages
+
+
+@pytest.mark.cuda
+def test_train_sync_spans_every_wait(cuda_dev, monkeypatch):
+    """Each host wait that torch.cuda.set_sync_debug_mode("warn") reports
+    while a small tree trains and is scored on the card falls inside a
+    ``train.sync`` span, and each such span waits: once, but for a
+    ``bincount``, which reads its input back more than once.  The timer's
+    train.sync count is the calls that wait."""
+    import contextlib
+    import warnings
+
+    from beats3d_tpu_torch.data.dataset import ArrayDataset
+    from beats3d_tpu_torch.models.forest import DecisionTree
+    from beats3d_tpu_torch.train import driver, trainer
+    from beats3d_tpu_torch.utils import CameraIntrinsics
+    from beats3d_tpu_torch.utils.profiler import TIMER
+
+    d, l = kernel_bench.hand_frames(CameraIntrinsics.d415(), range(3200, 3203))
+    train = ArrayDataset(d[:2], l[:2], 7, images_per_block=1)
+    t = trainer.DecisionTreeTrainer(1, 32, device=cuda_dev)
+    t.allocate(train, 64, 8)
+    tree = DecisionTree(8, 7)
+    spans = []                      # (in a bincount, waits) of each span
+    state = {"bincount": False}
+    sync, bincount = trainer.sync, trainer._bincount
+
+    def waits(caught):
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def counting_bincount(*a, **k):
+        state["bincount"] = True
+        try:
+            return bincount(*a, **k)
+        finally:
+            state["bincount"] = False
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        @contextlib.contextmanager
+        def counted():
+            n = waits(caught)
+            with sync():
+                yield
+            spans.append((state["bincount"], waits(caught) - n))
+
+        monkeypatch.setattr(trainer, "sync", counted)
+        monkeypatch.setattr(trainer, "_bincount", counting_bincount)
+        before = TIMER.count("train.sync")
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t.train(train, tree, np.random.default_rng(17))
+            driver.evaluate_tree_accuracy(tree.data, d[2:], l[2:],
+                                          device=cuda_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        total = waits(caught)
+    assert (tree.data[:, 5:7] == -1).any()          # the tree splits
+    assert total == sum(n for _, n in spans)        # none outside a span
+    assert {n for b, n in spans if not b} == {1}
+    assert min(n for b, n in spans if b) >= 1
+    assert TIMER.count("train.sync") - before == len(spans) > 100

@@ -148,18 +148,21 @@ def test_log_records_match_jax(json_lines):
         name = f"beats3d.test.{tag}.{json_lines}"
         log = mod.get_logger(name, json_lines=json_lines, stream=stream)
         assert mod.get_logger(name) is log     # configured once
-        metrics = mod.MetricsLog(log, every_s=0.0)
-        metrics.frame(0.004)
-        metrics.frame(0.006)
+        log.info("fps=%.1f", 90.0)
+        log.warning("late frame", extra={"metrics": {"latency_ms": 6.0}})
         records[tag] = stream.getvalue().splitlines()
     assert len(records["jax"]) == len(records["port"]) == 2
     if json_lines:
         for a, b in zip(records["jax"], records["port"]):
             ja, jb = json.loads(a), json.loads(b)
             assert ja.keys() == jb.keys()
-            assert ja["metrics"].keys() == jb["metrics"].keys()
-            assert jb["level"] == "INFO" and jb["msg"].startswith("fps=")
-        assert json.loads(records["port"][1])["metrics"][
-            "latency_ms"] == pytest.approx(6.0)
+            assert {k: v for k, v in ja.items() if k != "ts"} == {
+                k: v for k, v in jb.items() if k != "ts"} | {
+                "logger": ja["logger"]}
+        first, second = (json.loads(r) for r in records["port"])
+        assert first["level"] == "INFO" and first["msg"] == "fps=90.0"
+        assert second["level"] == "WARNING" and second["metrics"] == {
+            "latency_ms": 6.0}
     else:
-        assert all("INFO fps=" in r for r in records["port"])
+        assert "INFO fps=90.0" in records["port"][0]
+        assert "WARNING late frame" in records["port"][1]
