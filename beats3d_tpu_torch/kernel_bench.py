@@ -185,6 +185,37 @@ def oversized(scene, intrin):
     return big
 
 
+def ms_labels(inp: BenchInputs):
+    """Mean shift's main-path inputs, int32 label images at half resolution
+    (K1 on the pipeline's own stencils): the live frame's 2 crops and the
+    batched call's 32 (224x256), and the rescue's 4 full frames (240x424:
+    scenes 1 and 4 made oversized, both hands)."""
+    pipe, cfg = inp.pipe, inp.pipe.cfg
+    h, w = inp.frames.shape[1:]
+    r, scale = cfg.labels_reduce, pl._scale(w, cfg)
+    crops, _ = pl._eval_layers(inp.crops, pipe, cfg, scale)
+    big = torch.stack([pipe.as_depth(oversized(inp.scenes[i], inp.intrin))
+                       for i in (1, 4)])
+    depth1, grown, _, _ = pl._front(pipe, big, inp.plane)
+    hand = pl._full_stencils(depth1, grown, cfg)
+    lab, _ = pl._eval_layers(hand.reshape(4, h, w), pipe, cfg, scale)
+    full = pl._unmirror(lab.reshape(2, 2, h // r, w // r))
+    return {"live": crops[:2].contiguous(), "batch": crops.contiguous(),
+            "rescue": full.reshape(4, h // r, w // r).contiguous()}
+
+
+def ms_work(labels, num_classes, num_rounds=6):
+    """(bytes, operations) of one mean-shift call: the int32 labels read once
+    and the (N, C, 2) modes written once; per labelled pixel (class 1..C) 3
+    adds in round 0 and 12 float32 operations in each later round (2
+    subtractions, 2 products and an add for the distance, a division, an
+    exp, 2 products, 3 sums)."""
+    n = labels.numel() // (labels.shape[-2] * labels.shape[-1])
+    labelled = int(((labels >= 1) & (labels <= num_classes)).sum())
+    bytes_moved = 4 * labels.numel() + 8 * n * num_classes
+    return bytes_moved, labelled * (3 + 12 * (num_rounds - 1))
+
+
 def serpentine(h=60, w=106):
     """(h, w) bool mask of one component snaking row by row: union-find's
     slowest shape for neighbour propagation."""

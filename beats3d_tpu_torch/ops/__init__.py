@@ -4,6 +4,7 @@ from . import (  # noqa: F401
     forest_eval,
     forest_eval_cuda,
     meanshift,
+    meanshift_cuda,
     plane,
     points,
     preproc_cuda,

@@ -182,6 +182,8 @@ def _bind(lib):
         vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp,
     ]
     lib.b3d_plane_band_gauss.restype = i
+    lib.b3d_mean_shift.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.b3d_mean_shift.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
     lib.b3d_hand_groups_scratch.argtypes = [i, i]

@@ -11,7 +11,8 @@ One depth frame in, fingertip heights out:
       -> per-hand crop and stencil (the left hand
          mirrored, so the right-hand model applies)        (ops.points)
       -> layered decision forest, both hands in one launch (kernel K1)
-      -> per-class mean-shift modes                         (ops.meanshift)
+      -> per-class mean-shift modes, one launch of the
+         mean-shift kernel                                 (ops.meanshift_cuda)
       -> fingertip heights above the plane from the RAW depth
 
 The tap-detection state machine and MIDI stay on the host (runtime.app).
@@ -27,8 +28,8 @@ selected.  ``vmap`` becomes an explicit batch dimension.
 
 Depth is carried as int32 inside (PyTorch's uint16 support is thin); the
 outputs keep the JAX program's dtypes.  The backend follows the model's
-device: ``"cuda"`` (kernels K1, K2 and the grouping kernel) for a CUDA
-model, ``"torch"`` (their plain versions) for a CPU model.
+device: ``"cuda"`` (kernels K1, K2, the grouping kernel and the mean-shift
+kernel) for a CUDA model, ``"torch"`` (their plain versions) for a CPU model.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layered import LayeredDecisionForest, run_layered
-from ..ops import components, forest_eval_cuda, meanshift, points, preproc_cuda
+from ..ops import (components, forest_eval_cuda, meanshift_cuda, points,
+                   preproc_cuda)
 from ..utils.profiler import TIMER, StageClock
 from . import graph_cond
 from .graph_cond import cond
@@ -309,7 +311,7 @@ def _unmirror(lab):
 
 
 def _run_ms(labels, pipe):
-    return meanshift.mean_shift(
+    return meanshift_cuda.mean_shift_cuda(
         labels, pipe.variances, num_classes=pipe.num_classes,
         num_rounds=pipe.cfg.mean_shift_rounds)
 
@@ -505,7 +507,8 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
 FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
                  preproc_cuda.plane_band_gauss_cuda,
                  components.hand_groups_grown,
-                 components.hand_groups_multiblock)
+                 components.hand_groups_multiblock,
+                 meanshift_cuda.mean_shift_cuda)
 
 
 class FrameGraph:

@@ -72,8 +72,8 @@ import torch
 #                   index_}elementwise_kernel), in XLA's fusions' place
 #   copy_transfer + the copies and sets (Memcpy HtoD/DtoH/DtoD events,
 #                   memcpy* kernels; CatArrayBatchedCopy* is "copy")
-# Mean shift runs as ATen reductions and elementwise kernels, whose names
-# do not say who launched them: on the card "meanshift" stays empty.
+#   meanshift       the mean-shift kernel (mean_shift_kernel, csrc/
+#                   mean_shift.cu; the ATen ops around it are not)
 # set_branch_kernel (csrc/graph_cond.cu) sets a conditional node: XLA's
 # conditional wraps its body and is never a leaf, so it stays "other", as
 # does ATen's sort (bitonicSortKVInPlace; XLA's sort is "other" too).

@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ and holds each against its plain
-PyTorch version at its path's shapes: K2 bit for bit at B = 1 and 16, K1
-with 0 label mismatches against plain and the flagship golden on the
-golden frames and the pipeline's live (2) and batched (32) hand crops,
-the grouping kernel bit for bit in its labels-only, hand-groups and stage
-modes on the 16 scenes' K2 output (live and batched), the oversized-hand
-frame, the serpentine and a checkerboard.  Past the widths the kernels
-once refused: B1 (labels and single-tree semantics) and its pdf-sum mode
-on the golden frames with forests of 17, 32 and 64 trees of 7 classes and
-17 trees of 17 and 33 classes, and K1 with 5 layers of 17 trees of 17
-classes and 129 and 300 condition rows (wide_forests_vs_plain, the forests
-random from a seed); the pipeline on that 5-layer model, 16 live calls and
-a batch of 16 from CUDA graphs, against the CPU pipeline (wide_pipeline);
-the multi-block grouping path at depth_mm_level 1 and 0, one frame and 16,
-and a 240x424 serpentine, then BeatsApp at level 1 for 16 ticks against
-the CPU (components_large).
+Builds the port's CUDA kernels from csrc/ and holds each against its
+plain PyTorch version at its path's shapes: K2 bit for bit at B = 1 and
+16, K1 with 0 label mismatches against plain and the flagship golden on
+the golden frames and the pipeline's live (2) and batched (32) hand
+crops, the mean-shift kernel within 1e-4 px of its plain version on K1's
+labels of the live (2) and batched (32) crops and the rescue's 4 full
+frames (meanshift_vs_plain), the grouping kernel bit for bit in its
+labels-only, hand-groups and stage modes on the 16 scenes' K2 output
+(live and batched), the oversized-hand frame, the serpentine and a
+checkerboard.  Past the widths the kernels once refused: B1 (labels and
+single-tree semantics) and its pdf-sum mode on the golden frames with
+forests of 17, 32 and 64 trees of 7 classes and 17 trees of 17 and 33
+classes, and K1 with 5 layers of 17 trees of 17 classes and 129 and 300
+condition rows (wide_forests_vs_plain, the forests random from a seed);
+the pipeline on that 5-layer model, 16 live calls and a batch of 16 from
+CUDA graphs, against the CPU pipeline (wide_pipeline); the multi-block
+grouping path at depth_mm_level 1 and 0, one frame and 16, and a 240x424
+serpentine, then BeatsApp at level 1 for 16 ticks against the CPU
+(components_large).
 Then drives the port's paths:
 
 * the frame's CUDA graphs against the eager programs, bit for bit: the 16
@@ -28,8 +31,9 @@ Then drives the port's paths:
   synthetic frames, RANSAC plane, a warm tick then 60 timed ticks
   pipelined and 60 not, median and spread) and five batched calls, each a
   replayed CUDA graph through K1 (layered forest), K2 (plane band +
-  gaussian) and the grouping kernel (shrink, labels, hand selection and
-  grow in one launch), then 32 live ticks of each mode and 5 batched
+  gaussian), the grouping kernel (shrink, labels, hand selection and
+  grow in one launch) and the mean-shift kernel (every round and class
+  in one launch), then 32 live ticks of each mode and 5 batched
   calls under torch.profiler (after one traced warm-up call): device
   operations, device ms, idle share, host syncs, copies by direction,
   graph replays and the kernels' launches traced by name, which must
@@ -43,12 +47,13 @@ Then drives the port's paths:
   torch.profiler window of 32 pipelined live ticks and one of 6 batched
   calls, each chrome trace read by ``parse_trace`` and held against
   ``key_averages`` of the same window (every device name's launches and
-  ms; K1, K2 and the grouping kernel in their stages with the launches
-  the graphs replayed; the busy union at most the wall and the summed
-  device time, at least any stream's union), the idle shares from the
-  union and from the sum printed; then ``measure_device_ms`` over 10 live
-  ticks and 6 batched calls (device ms at most the wall), over a CPU-only
-  function (None) and over one that raises on the card (it raises);
+  ms; K1, K2, the grouping and the mean-shift kernel in their stages with
+  the launches the graphs replayed; the busy union at most the wall and
+  the summed device time, at least any stream's union), the idle shares
+  from the union and from the sum printed; then ``measure_device_ms``
+  over 10 live ticks and 6 batched calls (device ms at most the wall),
+  over a CPU-only function (None) and over one that raises on the card
+  (it raises);
 * forest training at the flagship fine layer's width (D=16, C=7, 848x480
   frames, 128 proposals in blocks of 64, 4 images per block), through B4
   (training split bits) and B1 (single-forest evaluation), its pct_match
@@ -188,8 +193,9 @@ from beats3d_tpu_torch.native import grouping  # noqa: E402
 from beats3d_tpu_torch.parallel import jobs, launch  # noqa: E402
 from beats3d_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
-    components, cuda_lib, forest_eval, forest_eval_cuda, points, posefit,
-    preproc_cuda, stereo, train_features, train_features_cuda, warp,
+    components, cuda_lib, forest_eval, forest_eval_cuda, meanshift,
+    meanshift_cuda, points, posefit, preproc_cuda, stereo, train_features,
+    train_features_cuda, warp,
 )
 from beats3d_tpu_torch.probes import __main__ as probes_main  # noqa: E402
 from beats3d_tpu_torch.probes import tiles as probe_tiles  # noqa: E402
@@ -216,16 +222,19 @@ B4 = train_features_cuda.train_feature_bits_cuda
 B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
 GK = components.hand_groups_grown
 MB = components.hand_groups_multiblock
-# the frame kernels' names in a profiler trace: K1, K2, the grouping kernel
+MS = meanshift_cuda.mean_shift_cuda
+# the frame kernels' names in a profiler trace: K1, K2, the grouping kernel,
+# the mean-shift kernel
 FRAME_KERNEL_NAMES = ("evaluate_layered_kernel", "plane_band_gauss_kernel",
-                      "hand_groups_kernel")
-FRAME_KERNEL_KEYS = ("k1", "k2", "grouping")
+                      "hand_groups_kernel", "mean_shift_kernel")
+FRAME_KERNEL_KEYS = ("k1", "k2", "grouping", "meanshift")
 # (key, wrapper, traced name) of the frame kernels; at depth_mm_level 1 the
 # grouping stage is the multi-block path (its first kernel is traced, once
 # per call)
-FRAME_KERNELS = tuple(zip(FRAME_KERNEL_KEYS, (K1, K2, GK), FRAME_KERNEL_NAMES))
+FRAME_KERNELS = tuple(zip(FRAME_KERNEL_KEYS, (K1, K2, GK, MS),
+                          FRAME_KERNEL_NAMES))
 LEVEL1_KERNELS = FRAME_KERNELS[:2] + (
-    ("grouping_multiblock", MB, "hand_groups_mb_local"),)
+    ("grouping_multiblock", MB, "hand_groups_mb_local"),) + FRAME_KERNELS[3:]
 APP_FRAMES = 60
 PIPELINE_CHECK_FRAMES = 60       # ticks after the warm-up, in each mode
 PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
@@ -234,8 +243,9 @@ PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
 DEVTIME_WINDOWS, DEVTIME_ITERS = (32, 6), (10, 6)
 # the stage of each frame kernel's traced name (utils.devtime.STAGES)
 FRAME_KERNEL_STAGES = {"k1": "eval_kernel", "k2": "preproc",
-                       "grouping": "components"}
+                       "grouping": "components", "meanshift": "meanshift"}
 BATCH = kb.BATCH
+MS_TOL = 1e-4        # px: the mean-shift kernel sums in another order
 CLASSES = 7          # background, palm, five fingers
 TRAIN_FRAMES, TEST_FRAMES = 16, 4
 # train_path's pct_match on this data and seed: the value every version of
@@ -410,6 +420,43 @@ def phase_layered(inp):
     return res
 
 
+def phase_meanshift(inp):
+    """The mean-shift kernel against its plain version at the main path's
+    shapes (``kernel_bench.ms_labels``: the live frame's 2 crops and the
+    batched call's 32 of 224x256, the rescue's 4 full frames of 240x424):
+    NaNs where plain has them, modes within MS_TOL px, a second launch
+    equal bit for bit; device time from a CUDA graph, the plain version's
+    launched from the host and from a CUDA graph, the bound from the label
+    bytes and the labelled pixels' operations."""
+    var, c = inp.pipe.variances, inp.pipe.num_classes
+    res = {}
+    for name, labels in kb.ms_labels(inp).items():
+        def kernel():
+            return MS(labels, var, num_classes=c)
+
+        def plain():
+            return meanshift.mean_shift(labels, var, num_classes=c)
+
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        bound_ms, bound_by = kb.bound(*kb.ms_work(labels, c))
+        res[name] = dict(
+            max_abs_err=float((got - want).abs().nan_to_num().max()),
+            nan_equal=torch.equal(got.isnan(), want.isnan()),
+            repeat_equal=torch.equal(got.view(torch.int32),
+                                     again.view(torch.int32)),
+            ms=graph_ms(kernel), plain_ms=host_ms(plain),
+            plain_graph_ms=graph_ms(plain, iters=5), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+        say("meanshift_vs_plain", images=name, shape=list(labels.shape),
+            **res[name])
+        r = res[name]
+        if r["max_abs_err"] > MS_TOL or not (r["nan_equal"]
+                                             and r["repeat_equal"]):
+            raise AssertionError(f"mean shift on {name}: {r}")
+    return res
+
+
 def kernel_device_ms(prof, needle):
     """(launches, mean device ms per launch) of the kernels whose name holds
     ``needle`` in a torch.profiler run."""
@@ -451,10 +498,10 @@ def device_profile(prof, calls, wall_ms, ranges=()):
 
 
 def counts():
-    """The launch counts of the frame's kernels (K1, K2, grouping): their
-    wrappers' calls, which a CUDA graph's warm-up and capture make and its
-    replays do not."""
-    return tuple(k.launches for k in (K1, K2, GK))
+    """The launch counts of the frame's kernels (K1, K2, grouping, mean
+    shift): their wrappers' calls, which a CUDA graph's warm-up and capture
+    make and its replays do not."""
+    return tuple(k.launches for k in (K1, K2, GK, MS))
 
 
 def body_launches(frame_graph, kernel):
@@ -465,10 +512,10 @@ def body_launches(frame_graph, kernel):
 
 
 def captured_launches(pipe):
-    """The (K1, K2, grouping) launches ``pipe``'s graphs made through the
-    wrappers: each graph's warm-up and its capture."""
+    """The (K1, K2, grouping, mean shift) launches ``pipe``'s graphs made
+    through the wrappers: each graph's warm-up and its capture."""
     return tuple(sum(2 * body_launches(g, k) for g in pipe.graphs.values())
-                 for k in (K1, K2, GK))
+                 for k in (K1, K2, GK, MS))
 
 
 def body_replays(pipe):
@@ -655,7 +702,8 @@ def phase_main_path(inp, smi):
     operations, device ms, idle share, graph replays, the cond bodies
     replayed, K1/K2/grouping launches, host syncs and copies (a live tick:
     0 syncs and 1 device-to-host copy; a batched call: 0 and 0, 1 replay).
-    Returns the launches traced in the windows (K1, K2, grouping)."""
+    Returns the launches traced in the windows (K1, K2, grouping, mean
+    shift)."""
     model, frames, plane = inp.model, inp.frames, inp.plane
     source = SyntheticSource(inp.intrin)
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
@@ -665,7 +713,7 @@ def phase_main_path(inp, smi):
                 + 2 * (1 + PROFILED_FRAMES))
     synth = [f for f, _ in zip(source.frames(), range(n_frames))]
     it = iter(synth)
-    K1.launches = K2.launches = GK.launches = MB.launches = 0
+    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
     t_cal = time.perf_counter()
@@ -749,7 +797,8 @@ def phase_main_path(inp, smi):
         ms_per_tick=ms_tick, batch=BATCH, ms_per_batched_call=ms_batch,
         fps_batched=BATCH * 1e3 / ms_batch["median"],
         k1_launches_traced=traced[0], k2_launches_traced=traced[1],
-        grouping_launches_traced=traced[2], k1_by_branch=k1_by_branch,
+        grouping_launches_traced=traced[2],
+        meanshift_launches_traced=traced[3], k1_by_branch=k1_by_branch,
         wrapper_launches=dict(zip(FRAME_KERNEL_KEYS, wrapper)),
         profiled=windows, graphs=graph_table(app.pipeline),
         hands_per_frame=hands.tolist(), valid_tips_batch=n_valid,
@@ -1865,7 +1914,7 @@ def phase_serving_path(inp, smi):
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
                    log=lambda *a: None)
     it = source.frames()
-    K1.launches = K2.launches = GK.launches = 0
+    K1.launches = K2.launches = GK.launches = MS.launches = 0
     for _ in range(app.cfg.warmup_frames + 1):
         app.tick(next(it))
     outs, secs = timed_ticks(app, it, SERVING_TICKS)
@@ -2187,7 +2236,7 @@ def phase_bag_path(inp, smi):
             return BeatsApp(inp.model, source, midi=Midi(), cfg=AppConfig(),
                             log=lambda *a: None)
 
-        K1.launches = K2.launches = GK.launches = 0
+        K1.launches = K2.launches = GK.launches = MS.launches = 0
         app = app_on(src)
         outs, walls, profiled_ticks = bag_drive(app, replay, BAG_PROFILED)
         launches = counts()
@@ -2668,7 +2717,7 @@ def phase_wide_pipeline(inp, smi):
                             inp.intrin)
     host = pl.FramePipeline(wide_model("cpu", 129, WIDE_PIPE_LEVELS),
                             inp.intrin)
-    K1.launches = K2.launches = GK.launches = MB.launches = 0
+    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
     live = [card(inp.frames[i % BATCH], inp.plane) for i in range(WIDE_TICKS)]
     batch = card.batch(inp.frames, inp.plane)
     torch.cuda.synchronize()
@@ -2812,7 +2861,7 @@ def phase_components_large(inp, smi):
         group_min_size=app.cfg.group_min_size)
     frames = iter([f for f, _ in zip(
         source.frames(), range(app.cfg.warmup_frames + 2 + LEVEL1_TICKS))])
-    K1.launches = K2.launches = GK.launches = MB.launches = 0
+    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
     for _ in range(app.cfg.warmup_frames + 1):     # warm-up, plane, capture
         app.tick(next(frames))
     seen = []
@@ -3054,6 +3103,7 @@ def main():
     inp = run("inputs", kb.bench_inputs, dev)
     k2 = run("k2_vs_plain", phase_preproc, inp)
     k1 = run("k1_vs_plain", phase_layered, inp)
+    ms = run("meanshift_vs_plain", phase_meanshift, inp)
     uf = run("components_vs_plain", phase_components, inp, smi)
     wide = run("wide_forests_vs_plain", phase_wide_forests, inp, dev, smi)
     run("wide_pipeline", phase_wide_pipeline, inp, smi)
@@ -3094,9 +3144,9 @@ def main():
                         train_forest_d16)
     run("mesh_nccl", phase_mesh_nccl, inp, dev)
     run("mesh_dryrun", dryrun_multichip, 4, "cuda")
-    # K1, K2 and the grouping kernel run inside CUDA graphs on the main
-    # path: their launches are the kernel records traced in main_path's
-    # profiled windows (each held there to the graphs' replays)
+    # K1, K2, the grouping and the mean-shift kernel run inside CUDA graphs
+    # on the main path: their launches are the kernel records traced in
+    # main_path's profiled windows (each held there to the graphs' replays)
     def worst(res, prefix):
         return max(v["max_abs_err"] for k, v in res.items()
                    if k.startswith(prefix))
@@ -3114,6 +3164,10 @@ def main():
               "label_components), :127-202 (make_hand_groups' selection) "
               "and beats3d_tpu/ops/points.py:176 (grow_groups); not a "
               "pallas_call", launches[2], uf["live/stage"]),
+        entry("mean_shift_cuda", "mean_shift.cu",
+              "beats3d_tpu/ops/meanshift.py:mean_shift (XLA operations; not "
+              "a pallas_call)", launches[3], dict(ms["batch"], max_abs_err=max(
+                  v["max_abs_err"] for v in ms.values()))),
         entry("evaluate_forest_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
               dict(b1["golden_r1"], max_abs_err=max(

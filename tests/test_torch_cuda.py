@@ -1074,9 +1074,9 @@ def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
 @pytest.mark.cuda
 def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     """A FrameGraph's warm-up and capture go through the kernel wrappers
-    (K2 and the grouping kernel once outside the cond, K1 once in each of
-    its bodies); its replays go through none, so they move no launch
-    count."""
+    (K2 and the grouping kernel once outside the cond, K1 and mean shift
+    once in each of its bodies); its replays go through none, so they move
+    no launch count."""
     from beats3d_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.FramePipeline(bench.model, bench.intrin)
@@ -1085,7 +1085,8 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     captured = [k.launches for k in pl.FRAME_KERNELS]
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
     assert {b: list(n.values()) for b, n in graph.launches.items()} == {
-        "": [0, 1, 1, 0], "full": [1, 0, 0, 0], "crop": [1, 0, 0, 0]}
+        "": [0, 1, 1, 0, 0], "full": [1, 0, 0, 0, 1],
+        "crop": [1, 0, 0, 0, 1]}
     assert [a - b for a, b in zip(captured, before)] == [
         2 * sum(n[k.__name__] for n in graph.launches.values())
         for k in pl.FRAME_KERNELS]
@@ -1352,7 +1353,7 @@ def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
     """The live frame at depth_mm_level 1 (the multi-block grouping path in
     the captured graph): replays equal the eager program, the graph's
     launches are K2 1 and the multi-block path 1 outside the cond and K1 1
-    in each branch, and a replay moves no count."""
+    and mean shift 1 in each branch, and a replay moves no count."""
     from beats3d_tpu_torch.ops import components
     from beats3d_tpu_torch.runtime import pipeline as pl
 
@@ -1364,10 +1365,12 @@ def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
                      pl.frame_step(pipe, depth, bench.plane), f"frame {i}")
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
     k1 = {"evaluate_layered_cuda": 1, "plane_band_gauss_cuda": 0,
-          "hand_groups_grown": 0, "hand_groups_multiblock": 0}
+          "hand_groups_grown": 0, "hand_groups_multiblock": 0,
+          "mean_shift_cuda": 1}
     assert graph.launches == {
         "": {"evaluate_layered_cuda": 0, "plane_band_gauss_cuda": 1,
-             "hand_groups_grown": 0, "hand_groups_multiblock": 1},
+             "hand_groups_grown": 0, "hand_groups_multiblock": 1,
+             "mean_shift_cuda": 0},
         "full": k1, "crop": k1}
     before = components.hand_groups_multiblock.launches
     pipe(bench.frames[5], bench.plane)
@@ -1577,3 +1580,185 @@ def test_train_sync_spans_every_wait(cuda_dev, monkeypatch):
     assert {n for b, n in spans if not b} == {1}
     assert min(n for b, n in spans if b) >= 1
     assert TIMER.count("train.sync") - before == len(spans) > 100
+
+
+# --- the mean-shift kernel (csrc/mean_shift.cu) ---------------------------
+
+MS_TOL = 1e-4           # px: the kernel sums in another order than plain
+
+
+def _ms_same_as_plain(labels, var, classes, rounds=6):
+    """The kernel against the plain version on one input: one launch, NaNs
+    where plain has them, modes within MS_TOL px, and a second launch equal
+    bit for bit.  Returns the largest mode gap."""
+    from beats3d_tpu_torch.ops import meanshift, meanshift_cuda
+
+    before = meanshift_cuda.mean_shift_cuda.launches
+    got = meanshift_cuda.mean_shift_cuda(labels, var, num_classes=classes,
+                                         num_rounds=rounds)
+    again = meanshift_cuda.mean_shift_cuda(labels, var, num_classes=classes,
+                                           num_rounds=rounds)
+    want = meanshift.mean_shift(labels, var, num_classes=classes,
+                                num_rounds=rounds)
+    torch.cuda.synchronize()
+    assert meanshift_cuda.mean_shift_cuda.launches == before + 2
+    assert got.shape == want.shape == labels.shape[:-2] + (classes, 2)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.isnan(), want.isnan())
+    gap = float((got - want).abs().nan_to_num().max()) if got.numel() else 0.0
+    assert gap <= MS_TOL, gap
+    return gap
+
+
+def _classes_17(lab, classes):
+    """The bench's label images spread over 17 classes (16x16 tiles of each
+    class take one of five neighbouring ids), background kept."""
+    h, w = lab.shape[-2:]
+    yy = torch.arange(h, device=lab.device).view(h, 1) // 16
+    xx = torch.arange(w, device=lab.device).view(1, w) // 16
+    fg = (lab >= 1) & (lab <= classes)
+    spread = ((lab - 1) * 5 + (yy + xx) % 5) % 17 + 1
+    return torch.where(fg, spread, lab).to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+def test_mean_shift_kernel_matches_plain(cuda_dev, bench):
+    """At the main path's shapes, K1's labels of the bench scenes: the live
+    frame's 2 crops and the batched call's 32 (224x256), the rescue's 4
+    full frames (240x424), and one crop (N = 1); each with the flagship's
+    classes and spread over 17 (the wide models')."""
+    c, var = bench.pipe.num_classes, bench.pipe.variances
+    var17 = torch.tensor([50.0] + [8.0] * 16, device=cuda_dev)
+    for name, lab in kernel_bench.ms_labels(bench).items():
+        fg = ((lab >= 1) & (lab <= c)).flatten(1).sum(1)
+        k = int(fg.argmax())
+        assert fg[k] > 0, name
+        for one in (lab, lab[k:k + 1].contiguous()):
+            _ms_same_as_plain(one, var, c)
+            _ms_same_as_plain(_classes_17(one, c), var17, 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,classes", [
+    (1, 224, 256, 7), (32, 224, 256, 7), (2, 37, 53, 17), (3, 3, 5, 7),
+    (1, 1, 1, 2), (4, 240, 424, 17), (2, 64, 96, 70), (1, 40, 50, 300),
+    (1, 1700, 1000, 7)])
+def test_mean_shift_kernel_edge_cases(rng_np, cuda_dev, n, h, w, classes):
+    """Labels with a blob per image: class 4 absent (NaN), class 3 a single
+    pixel, class 5 two opposite corners with a bandwidth so narrow that
+    sum(p) underflows to 0 (its mode holds the centroid), labels 0, 65535
+    and C + 1 as background; odd widths (no 16-byte rows), images of fewer
+    rows than a cluster has CTAs, more classes than one group (70, 300),
+    an image too large to stage (read from device memory at every pass;
+    its labels sparse, so that plain's float32 sums stay exact), 1 to 6
+    rounds."""
+    if h * w <= 200_000:
+        lab = rng_np.integers(0, classes + 2, (n, h, w))
+        lab[rng_np.random((n, h, w)) < 0.2] = 65535
+    else:
+        lab = np.zeros((n, h, w), np.int64)
+        for c in range(1, classes + 1):
+            cy, cx = rng_np.integers(20, h - 20), rng_np.integers(20, w - 20)
+            lab[:, cy - 15:cy + 15, cx - 15:cx + 15] = c
+    yy, xx = np.mgrid[0:h, 0:w]
+    for k in range(n):
+        cy, cx = rng_np.integers(0, h), rng_np.integers(0, w)
+        lab[k][(yy - cy) ** 2 + (xx - cx) ** 2 < 40] = 2
+    lab[(lab == 3) | (lab == 4) | (lab == 5)] = 0
+    lab[:, h // 2, w // 3] = min(3, classes)
+    var = np.full(classes, 8.0, np.float32)
+    var[0] = 50.0
+    if classes >= 5:
+        lab[:, 0, 0] = lab[:, -1, -1] = 5     # the centroid far from both
+        var[4] = 0.05
+    labels = torch.as_tensor(lab.astype(np.int32), device=cuda_dev)
+    var = torch.as_tensor(var, device=cuda_dev)
+    for rounds in (6, 1, 2):
+        _ms_same_as_plain(labels, var, classes, rounds)
+    if classes >= 5 and h * w > 100:
+        from beats3d_tpu_torch.ops import meanshift_cuda
+        held = meanshift_cuda.mean_shift_cuda(labels, var, num_classes=classes)
+        first = meanshift_cuda.mean_shift_cuda(labels, var,
+                                               num_classes=classes,
+                                               num_rounds=1)
+        assert torch.equal(held[:, 4], first[:, 4])
+        assert held[:, 3].isnan().all() and not held[:, 2].isnan().any()
+
+
+@pytest.mark.cuda
+def test_mean_shift_kernel_rejects_bad_input(cuda_dev):
+    from beats3d_tpu_torch.ops import meanshift_cuda
+
+    ms = meanshift_cuda.mean_shift_cuda
+    lab = torch.ones((2, 16, 16), dtype=torch.int32, device=cuda_dev)
+    var = torch.full((7,), 8.0, device=cuda_dev)
+    bad = [(lab.to(torch.int64), var, 7), (lab.to(torch.float32), var, 7),
+           (lab.transpose(1, 2), var, 7), (lab[0, 0], var, 7),
+           (lab, var.cpu(), 7), (lab, var.double(), 7), (lab, var[:6], 7),
+           (lab, torch.full((14,), 8.0, device=cuda_dev)[::2], 7),
+           (lab, var[:0], 0)]
+    for labels, v, c in bad:
+        with pytest.raises(ValueError):
+            ms(labels, v, num_classes=c)
+
+
+def _tip_edge_distance(a, b, pipe):
+    """The smallest distance, in px, from an integer of a valid fingertip
+    mode coordinate that differs between outputs a and b (inf if none):
+    the heights sample the raw depth at the truncated mode pixel."""
+    ma = a["means"][..., pipe.tip_rows, :][a["tip_valid"]]
+    mb = b["means"][..., pipe.tip_rows, :][a["tip_valid"]]
+    d = torch.minimum((ma - ma.round()).abs(), (mb - mb.round()).abs())
+    d = d[ma != mb]
+    return float(d.min()) if d.numel() else float("inf")
+
+
+@pytest.mark.cuda
+def test_frame_programs_mean_shift_kernel_against_plain(cuda_dev, bench,
+                                                        monkeypatch, capsys):
+    """The eager frame programs with mean shift on the kernel against the
+    same programs with the plain version: the 16 scenes and each made
+    oversized, one by one, and batches with nbad = 0, 1 and 3.  Labels,
+    g_info, tip_valid, tip_px and guard_muted equal, heights within rtol
+    1e-5, modes within MS_TOL px; every valid fingertip mode coordinate
+    that differs lies farther from a pixel edge than the largest mode gap,
+    so the heights sample the same pixels."""
+    from beats3d_tpu_torch.ops import meanshift
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = bench.pipe
+    big = [pipe.as_depth(kernel_bench.oversized(s, bench.intrin))
+           for s in bench.scenes]
+    batches = []
+    for bad in ((), (1,), (1, 4, 9)):
+        frames = bench.frames.clone()
+        for i in bad:
+            frames[i] = big[i]
+        batches.append(frames)
+    runs = [(pl.frame_step, d) for d in list(bench.frames) + big]
+    runs += [(pl.frame_step_batched, b) for b in batches]
+    with_kernel = [program(pipe, d, bench.plane) for program, d in runs]
+
+    def plain(labels, pipe):
+        return meanshift.mean_shift(
+            labels, pipe.variances, num_classes=pipe.num_classes,
+            num_rounds=pipe.cfg.mean_shift_rounds)
+
+    monkeypatch.setattr(pl, "_run_ms", plain)
+    with_plain = [program(pipe, d, bench.plane) for program, d in runs]
+    gap, edge = 0.0, float("inf")
+    for i, (a, b) in enumerate(zip(with_kernel, with_plain)):
+        for k in ("labels", "g_info", "tip_valid", "tip_px", "guard_muted"):
+            assert torch.equal(a[k], b[k]), (i, k)
+        assert torch.equal(a["means"].isnan(), b["means"].isnan()), i
+        gap = max(gap, float((a["means"] - b["means"]).abs().nan_to_num()
+                             .max()))
+        v = a["tip_valid"]
+        torch.testing.assert_close(a["heights"][v], b["heights"][v],
+                                   rtol=1e-5, atol=0)
+        edge = min(edge, _tip_edge_distance(a, b, pipe))
+    with capsys.disabled():
+        print(f"\nmean shift, frame programs: largest mode gap {gap} px; "
+              f"a differing tip coordinate {edge} px from a pixel edge")
+    assert gap <= MS_TOL
+    assert edge > gap

@@ -16,7 +16,8 @@ from beats3d_tpu.ops import components as jcomp
 from beats3d_tpu.ops import meanshift as jms
 from beats3d_tpu.ops import plane as jplane
 from beats3d_tpu.ops import points as jpoints
-from beats3d_tpu_torch.ops import components, meanshift, plane, points
+from beats3d_tpu_torch.ops import (components, meanshift, meanshift_cuda,
+                                   plane, points)
 
 
 def _serpentine(h=30, w=53):
@@ -91,6 +92,25 @@ def test_mean_shift_matches_jax(rng, num_classes, var):
                                num_classes=num_classes, num_rounds=6).numpy()
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("num_classes,var,rounds", [
+    (3, 8.0, 6), (4, 8.0, 6), (3, 0.05, 6), (4, 8.0, 1)])
+def test_mean_shift_wrapper_on_cpu_is_plain(rng, num_classes, var, rounds):
+    """meanshift_cuda.mean_shift_cuda on CPU tensors is the plain version,
+    bit for bit, on one image and a (2, 2) stack; it counts no launch."""
+    labels = torch.as_tensor(_cluster_labels(rng).astype(np.int32))
+    stack = torch.stack([labels, labels.flip(-1)])[:, None].repeat(1, 2, 1, 1)
+    v = torch.full((num_classes,), var)
+    before = meanshift_cuda.mean_shift_cuda.launches
+    for lab in (labels, stack):
+        got = meanshift_cuda.mean_shift_cuda(lab, v, num_classes=num_classes,
+                                             num_rounds=rounds)
+        want = meanshift.mean_shift(lab, v, num_classes=num_classes,
+                                    num_rounds=rounds)
+        assert got.shape == lab.shape[:-2] + (num_classes, 2)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert meanshift_cuda.mean_shift_cuda.launches == before
 
 
 def _table_points(h=48, w=64):

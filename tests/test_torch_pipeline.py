@@ -313,6 +313,38 @@ def test_frame_programs_read_nothing_back(pipes, monkeypatch, big):
             assert torch.equal(a[k].nan_to_num(), b[k].nan_to_num()), k
 
 
+def test_frame_programs_run_mean_shift_through_its_kernel_wrapper(
+        pipes, monkeypatch):
+    """frame_step and frame_step_batched reach mean shift only through
+    meanshift_cuda.mean_shift_cuda, which FrameGraph counts
+    (pipeline.FRAME_KERNELS): every plain call comes from the wrapper, once
+    per cond branch that runs it (eagerly every branch runs: crop and full;
+    crop, rescue and full)."""
+    from beats3d_tpu_torch.ops import meanshift, meanshift_cuda
+
+    intrin, _, tp = pipes
+    assert meanshift_cuda.mean_shift_cuda in tpipe.FRAME_KERNELS
+    calls = {"wrapper": 0, "plain": 0}
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(meanshift_cuda, "mean_shift_cuda",
+                        counted("wrapper", meanshift_cuda.mean_shift_cuda))
+    monkeypatch.setattr(meanshift, "mean_shift",
+                        counted("plain", meanshift.mean_shift))
+    plane = tp._plane(_table_plane())
+    tpipe.frame_step(tp, tp.as_depth(_scene(intrin, 1)), plane)
+    assert calls == {"wrapper": 2, "plain": 2}
+    batch = tp.as_depth(np.stack([_scene(intrin, t, big=t == 1)
+                                  for t in range(3)]))
+    tpipe.frame_step_batched(tp, batch, plane)
+    assert calls == {"wrapper": 5, "plain": 5}
+
+
 def test_app_pipelined_matches_unpipelined(tmp_path, rng):
     """BeatsApp sends the same MIDI events pipelined (frame N's program
     queued before frame N-1's tap update) and not."""
