@@ -32,7 +32,7 @@ import torch  # noqa: E402
 
 from portbench.lib import harness  # noqa: E402
 from portbench.reference import (  # noqa: E402
-    compare, forest, frame, plane, taps, trainer as ref_trainer)
+    compare, frame, models, plane, taps, trainer as ref_trainer)
 from portbench.traffic import scenes as traffic  # noqa: E402
 
 LOW = torch.bfloat16
@@ -44,7 +44,7 @@ def _frame_outputs(cfg, scenes, dev, ftype, batch):
     from the calibrated plane's uniforms, rounded to ``ftype``, and the
     frame program on it."""
     cam = cfg["camera"]
-    model = forest.Layered.load(os.path.join(ROOT, cfg["model"]), dev)
+    model, run_layered = models.load(cfg, ROOT, dev)
     raw = torch.as_tensor(scenes.astype(np.int32)).to(dev)
     calib = cfg["app"]["warmup_frames"] % len(scenes) if not batch else 0
     pts = frame.deproject_points(
@@ -53,7 +53,8 @@ def _frame_outputs(cfg, scenes, dev, ftype, batch):
     mat = plane.calibrate_plane(plane.draw_uniforms(
         p["num_candidates"], p["seed"], dev), pts, float(p["threshold"]))
     mat = mat.to(ftype).to(torch.float32)
-    ref = frame.RefPipeline(model, cam, cfg["pipeline"], dev, ftype=ftype)
+    ref = frame.RefPipeline(model, cam, cfg["pipeline"], dev, ftype=ftype,
+                            run_layered=run_layered)
     keys = ("labels", "means", "heights", "tip_valid", "g_info",
             "guard_muted")
     if batch:

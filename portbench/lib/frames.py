@@ -11,7 +11,7 @@ import gc
 import numpy as np
 import torch
 
-from ..reference import forest, frame, plane
+from ..reference import frame, models, plane
 from ..work import counts
 
 KEYS = ("labels", "means", "heights", "tip_valid", "g_info", "guard_muted")
@@ -54,10 +54,11 @@ def reference(ctx, scenes: np.ndarray, calib_scene: int, *, batch=False):
     and the calibration frame, then either every scene as the live tick
     computes it (``batch`` False: {scene: outputs}) or the scenes as one
     batch ({scene: outputs}); with the K1 work of one call (per launch:
-    (stack shape, per-layer walk counts)) and the plane, (4, 4) numpy."""
+    (stack shape, per-layer walk counts)) and the plane, (4, 4) numpy.
+    The model is the configuration's reference model (``models``)."""
     cfg = ctx.config
     dev = ctx.device
-    model = forest.Layered.load(ctx.path(cfg["model"]), dev)
+    model, run_layered = models.load(cfg, ctx.root, dev)
     pc = cfg["plane"]
     cam = cfg["camera"]
     raw = torch.as_tensor(scenes.astype(np.int32)).to(dev)
@@ -67,7 +68,8 @@ def reference(ctx, scenes: np.ndarray, calib_scene: int, *, batch=False):
     mat = plane.calibrate_plane(
         plane.draw_uniforms(pc["num_candidates"], pc["seed"], dev), pts,
         float(pc["threshold"]))
-    ref = frame.RefPipeline(model, cam, cfg["pipeline"], dev)
+    ref = frame.RefPipeline(model, cam, cfg["pipeline"], dev,
+                            run_layered=run_layered)
     outs, work = {}, []
     if batch:
         ref.visits = []

@@ -101,6 +101,12 @@ class Layered:
         return Layered(layers, np.array(cfg["conditions"], np.int32), device)
 
 
+def load(config_path: str, device) -> Layered:
+    """The layered model of a ``model_cfg.json`` (the contract of
+    ``reference.models``)."""
+    return Layered.load(config_path, device)
+
+
 def _probe(depth_flat, yy, xx, h: int, w: int):
     """Depth at integer coords (N, ...) with out-of-bounds -> 65535."""
     inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)

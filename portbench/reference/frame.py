@@ -11,7 +11,8 @@ which the port's kernels and CUDA graphs are held to bit for bit:
       -> per-hand stencilled crops (the left hand mirrored), or the full
          frame when a hand exceeds the crop window; in a batch up to
          ``fallback_budget`` such frames rescued full-frame
-      -> the layered forest (K1's plain version) -> mean shift
+      -> the layered forest (K1's plain version; the configuration's
+         reference model, ``models``) -> mean shift
       -> fingertip heights above the plane from the raw depth
 
 Where the program decides on the device (a conditional node of its CUDA
@@ -27,8 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from . import forest
 
 MAX_UINT16 = 65535
 
@@ -302,13 +301,16 @@ def mean_shift(labels, variances, *, num_classes: int, num_rounds: int,
 class RefPipeline:
     """The reference frame program for one model, camera and pipeline
     configuration (the configuration file's ``camera`` and ``pipeline``
-    sections), on ``device``.  ``visits``, when a list, receives the
-    (stack shape, per-layer walk visits) of every layered evaluation: the
-    K1 launches a call stands for, for the work counts."""
+    sections), on ``device``, evaluating ``model`` with ``run_layered``
+    (the pair that ``models.load`` resolves from the configuration).
+    ``visits``, when a list, receives the (stack shape, per-layer walk
+    visits) of every layered evaluation: the K1 launches a call stands
+    for, for the work counts."""
 
-    def __init__(self, model: forest.Layered, camera: dict, pipeline: dict,
-                 device, ftype=torch.float32):
+    def __init__(self, model, camera: dict, pipeline: dict, device, *,
+                 run_layered, ftype=torch.float32):
         self.model = model
+        self.run_layered = run_layered
         self.cam = camera
         self.p = pipeline
         self.dev = torch.device(device)
@@ -352,9 +354,9 @@ class RefPipeline:
             flags = self._incoherent(imgs, r)
             imgs = torch.where(flags[:, None, None], 0, imgs)
         lv = None if self.visits is None else []
-        lab = forest.run_layered(imgs, self.model, labels_reduce=r,
-                                 scale_factor=scale, visits=lv,
-                                 ftype=self.ftype)
+        lab = self.run_layered(imgs, self.model, labels_reduce=r,
+                               scale_factor=scale, visits=lv,
+                               ftype=self.ftype)
         if lv is not None:
             self.visits.append((tuple(imgs.shape), lv))
         return lab, flags

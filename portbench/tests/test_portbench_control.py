@@ -11,7 +11,8 @@ from portbench import control
 from .conftest import SEED, small
 
 
-@pytest.mark.parametrize("cell", ["flagship.live", "flagship.batch16",
+@pytest.mark.parametrize("cell", ["flagship.live", "flagship.live_idle",
+                                  "flagship.batch16",
                                   "flagship_fine_train.recipe"])
 def test_control_is_not_correct(cell):
     _, _, cfg, wl = small(cell)

@@ -52,18 +52,34 @@ def _half(method):
 
 
 def test_clean_runs_are_correct():
-    for cell in ("flagship.live", "flagship.batch16",
+    for cell in ("flagship.live", "flagship.live_idle", "flagship.batch16",
                  "flagship_fine_train.recipe"):
         res, table = run_small(cell)
         assert res["correct"], (cell, table)
         assert res["attempted"] >= 1 and res["failed"] == 0
 
 
-@pytest.mark.parametrize("fault", [_stale, _altered])
-def test_live_faults(monkeypatch, fault):
+def _lagged(method):
+    """``method`` returning the result of its call before (its first call
+    returns its own)."""
+    prev = {}
+
+    def wrapped(self, *a, **k):
+        out = _clone(method(self, *a, **k))
+        last = prev.get("out", out)
+        prev["out"] = out
+        return last
+    return wrapped
+
+
+# flagship.live_idle has a stretch of bare table, then one of hands: a
+# tick that repeats a frame's answer shows where the hands come and go
+@pytest.mark.parametrize("cell", ["flagship.live", "flagship.live_idle"])
+@pytest.mark.parametrize("fault", [_stale, _lagged, _altered])
+def test_live_faults(monkeypatch, fault, cell):
     monkeypatch.setattr(pipeline.FramePipeline, "__call__",
                         fault(pipeline.FramePipeline.__call__))
-    res, table = run_small("flagship.live")
+    res, table = run_small(cell)
     assert not res["correct"], table
 
 

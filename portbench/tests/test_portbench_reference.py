@@ -18,7 +18,7 @@ from beats3d_tpu_torch.models.forest import DecisionTree
 from beats3d_tpu_torch.utils import CameraIntrinsics
 
 from portbench.lib import frames as fr
-from portbench.reference import forest, frame, plane, trainer
+from portbench.reference import frame, models, plane, trainer
 from portbench.traffic import scenes as traffic
 
 from .conftest import ROOT, SEED, small
@@ -51,8 +51,8 @@ def _setup(cell):
             cfg, PipelineConfig.__dataclass_fields__)),
         plane_z_threshold=pc["plane_z_threshold"],
         group_min_size=pc["group_min_size"])
-    ref = frame.RefPipeline(forest.Layered.load(f"{ROOT}/{cfg['model']}",
-                                                CPU), cam, pc, CPU)
+    model, run_layered = models.load(cfg, ROOT, CPU)
+    ref = frame.RefPipeline(model, cam, pc, CPU, run_layered=run_layered)
     return raw, mat, pipe, ref, big
 
 

@@ -3,13 +3,16 @@ mix's parameters (``portbench/workloads/<cell>.json``, key ``traffic``) and
 the run's seed.  Host numpy; imports nothing of the program.
 
 Frames of the frame cells: ``scenes`` articulated two-hand (or one-hand)
-scenes over a tilted table at the camera's size, scene i from
+scenes over a tilted table at the camera's size, of which the first
+``bare_share`` (a share, rounded to whole scenes; default 0) are the table
+alone, scene i from
 ``default_rng(seed_base + seed_stride * seed + i)`` (``seed_stride`` 0: the
 same scenes for every seed), put in an order drawn from the seed when
 ``shuffle`` is set; ``oversized`` of them, at positions drawn from the
 seed, carry a 520x400 px blob 40 mm above the table across the left half
 (a hand too big for the crop window).  Every seed gives the same number of
-scenes and of oversized ones.
+scenes and of oversized ones.  ``noise_scale`` > 0 degrades every scene,
+bare or not, as a D415 does, its noise drawn from the scene's generator.
 
 Frames of the training cells: ``train`` + ``test`` one-hand scenes, frame i
 from ``default_rng(seed_base + seed_stride * seed + i)``, with the rendered
@@ -59,15 +62,24 @@ RENDER_KEYS = ("scenes", "train", "test", "seed_base", "seed_stride",
                "noise_scale")
 
 
+def cache_name(kind: str, tr: dict, cam: dict) -> str:
+    """The cache file's name of ``kind``'s frames of mix ``tr``: a hash
+    of the parameters they depend on.  ``bare_share`` enters only where the
+    mix sets it, so that the other mixes keep the names they had before
+    it."""
+    params = {k: tr.get(k) for k in RENDER_KEYS}
+    if "bare_share" in tr:
+        params["bare_share"] = tr["bare_share"]
+    key = json.dumps([kind, params, cam], sort_keys=True)
+    return "%s-%s.npz" % (kind, hashlib.sha256(key.encode()).hexdigest()[:24])
+
+
 def _rendered(kind: str, tr: dict, seed: int, cam: dict, cache, render):
     """``render()``'s arrays, through the cache when the seed does not
     change them."""
     if cache is None or tr["seed_stride"] != 0:
         return render()
-    key = json.dumps([kind, {k: tr.get(k) for k in RENDER_KEYS}, cam],
-                     sort_keys=True)
-    path = os.path.join(cache, "%s-%s.npz" % (
-        kind, hashlib.sha256(key.encode()).hexdigest()[:24]))
+    path = os.path.join(cache, cache_name(kind, tr, cam))
     if os.path.exists(path):
         with np.load(path) as z:
             return tuple(z[f"a{i}"] for i in range(len(z.files)))
@@ -80,17 +92,34 @@ def _rendered(kind: str, tr: dict, seed: int, cam: dict, cache, render):
     return arrays
 
 
+def bare(tr: dict) -> int:
+    """How many of the mix's frame scenes are the table alone."""
+    share = tr.get("bare_share", 0.0)
+    if not 0.0 <= share <= 1.0:
+        raise ValueError(f"bare_share must lie in [0, 1]: {share!r}")
+    return int(share * tr["scenes"] + 0.5)
+
+
+def _scene(tr: dict, c, rng, is_bare: bool):
+    """One frame scene's depth."""
+    noise = tr.get("noise_scale", 0.0)
+    if not is_bare:
+        return synth.articulated_scene(
+            c, rng, two_hands=tr["two_hands"], flex_scale=tr["flex_scale"],
+            height_range=tuple(tr["height_range"]),
+            detail=tr.get("detail", 0.0), noise_scale=noise)[0]
+    depth, _ = synth.compose(synth.table_depth(c), [])
+    if noise > 0:
+        depth = synth.apply_sensor_noise(depth, rng, noise_scale=noise)
+    return depth
+
+
 def frames(tr: dict, seed: int, cam: dict, cache=None):
     """(scenes, H, W) uint16 depth frames and the indices of the oversized
     ones."""
-    c = camera(cam)
+    c, k = camera(cam), bare(tr)
     out, = _rendered("frames", tr, seed, cam, cache, lambda: (np.stack([
-        synth.articulated_scene(
-            c, _scene_rng(tr, seed, i), two_hands=tr["two_hands"],
-            flex_scale=tr["flex_scale"],
-            height_range=tuple(tr["height_range"]),
-            detail=tr.get("detail", 0.0),
-            noise_scale=tr.get("noise_scale", 0.0))[0]
+        _scene(tr, c, _scene_rng(tr, seed, i), i < k)
         for i in range(tr["scenes"])]),))
     if tr.get("shuffle"):
         out = out[np.random.default_rng([seed, 16]).permutation(len(out))]
