@@ -3,7 +3,9 @@
 // * K1 (evaluate_layered_cuda): every layer of a layered forest plus the
 //   conditions composite, in evaluate_layered_wide_kernel for any model and
 //   evaluate_layered_kernel for one of at most 4 layers, 16 classes and 128
-//   condition rows (the flagship's kind, faster there);
+//   condition rows (the flagship's kind, faster there); a routed model
+//   (rows that name the layer the composite continues at) in the general
+//   kernel's routed instantiation, which also counts its routing;
 // * B1, evaluate_forest_kernel (evaluate_forest_cuda): one forest, at the
 //   end of this file, on K1's design.
 //
@@ -68,6 +70,23 @@
 //   spills 16.)  A model of at most 4 layers, 16 classes and 128 condition
 //   rows runs the smaller kernel after it, which keeps them in the
 //   parameter bank.
+// * A routed model (Keskin et al.'s local expert network: a router layer
+//   and sibling expert layers, each filtered on one of the router's
+//   classes) runs the general kernel's kRouted instantiation: its
+//   condition rows (flag, value, layer) move the composite to the layer a
+//   row names, so a pixel routed to expert k reads layer k's label.  The
+//   filter already keeps every other expert from walking the pixel, so a
+//   warp walks each expert that one of its pixels is routed to, its other
+//   lanes idle.  That instantiation counts, per layer, the pixels that walk
+//   it, the warp tasks that do and their pixel slots (lanes 0-2 of the
+//   warp, one atomic instruction a warp and layer), from which the share
+//   of lanes a straddled expert keeps busy follows.  A warp that walked
+//   anything counts after its last layer, from the labels in its scratch
+//   (65535 where a layer did not walk the pixel).  Counting inside the
+//   walk's loop cost 1.4-1.5 % of the routed launch on the H100 (spread
+//   over 32 copies of the counters or not), and after it in every warp,
+//   the four fifths of the batched call's warps that hold no hand among
+//   them, 2.7 %.
 // * A block covers a (32 / G) x 8 tile of label pixels (one row per warp),
 //   so neighbouring pixels, whose probes and node paths overlap, share L1.
 // * The forest is repacked once, at model load (models/forest.py:
@@ -284,8 +303,11 @@ __device__ __forceinline__ void layer_step(
 // the pixel's layer labels (as ints), then max_trees (stop level, leaf
 // side) entries; in dynamic shared memory, or (kSpill) at pixel oi of
 // `spill` (that instantiation also indexes the leaf pdfs in 64 bits).  The
-// layer descriptors are read from device memory.
-template <int G, int kMinBlocks, int kMaxC, bool kChunks, bool kSpill>
+// layer descriptors are read from device memory.  kRouted: a routed model,
+// whose condition rows (flag, value, layer) name the layer the composite
+// continues at, and whose routing counters (3 per layer) it adds to.
+template <int G, int kMinBlocks, int kMaxC, bool kChunks, bool kSpill,
+          bool kRouted>
 __global__ void __launch_bounds__(kLayeredThreads, kMinBlocks)
 evaluate_layered_wide_kernel(const int32_t* __restrict__ depth,
                              int32_t* __restrict__ out, int h, int w, int r,
@@ -293,7 +315,8 @@ evaluate_layered_wide_kernel(const int32_t* __restrict__ depth,
                              const B3dLayerDesc* __restrict__ layers,
                              int num_layers, int slots,
                              const int32_t* __restrict__ conditions,
-                             int num_cond, int2* __restrict__ spill) {
+                             int num_cond, int2* __restrict__ spill,
+                             unsigned long long* __restrict__ counts) {
   constexpr int kPix = 32 / G;                         // pixels per warp task
   extern __shared__ __align__(16) int2 scratch[];
   const int lane = threadIdx.x & 31;
@@ -325,13 +348,55 @@ evaluate_layered_wide_kernel(const int32_t* __restrict__ depth,
                                           inside, k, img, h, w, y, x, d, rd,
                                           scale);
   }
+  if (kRouted && __any_sync(kFull, base_eligible)) {
+    // the routing counters, from the labels the layers left (a warp with
+    // no pixel to walk walked no layer): per layer walked, lanes 0, 1 and
+    // 2 add the warp task's pixels that walked it, the task and its pixel
+    // slots (one atomic instruction a warp and layer)
+    const int lane_c = threadIdx.x & 31;
+    for (int li = 0; li < num_layers; ++li) {
+      const unsigned walked = __ballot_sync(
+          kFull, k == 0 && inside && px.lab[li] != b3d::kMissing);
+      if (walked != 0u && lane_c < 3) {
+        atomicAdd(counts + 3 * li + lane_c,
+                  lane_c == 0 ? static_cast<unsigned long long>(__popc(walked))
+                  : lane_c == 1 ? 1ull
+                                : static_cast<unsigned long long>(kPix));
+      }
+    }
+  }
 
   // Conditions walk: row conditions[offset + label - 1] = (0, CLASS) emits
-  // CLASS, (1, NEXT) moves on to the next layer at offset NEXT; a label of
-  // 0 or 65535 leaves the pixel unlabelled.
+  // CLASS, (1, NEXT) moves on to the next layer at offset NEXT, (1, NEXT,
+  // LAYER) (kRouted) to layer LAYER (-1: the next); a label of 0 or 65535,
+  // or a row that names no later layer, leaves the pixel unlabelled.
   if (!inside || k != 0) return;
   int result = b3d::kMissing;
   int offset = 0;
+  if (kRouted) {
+    int li = 0;
+    while (li < num_layers) {
+      const int l = px.lab[li];
+      if (l == 0 || l == b3d::kMissing) break;
+      const int row = min(max(offset + l - 1, 0), num_cond - 1);
+      const int flag = __ldg(conditions + 3 * row);
+      const int val = __ldg(conditions + 3 * row + 1);
+      const int named = __ldg(conditions + 3 * row + 2);
+      if (flag == 0) {
+        result = val;
+        break;
+      }
+      int next = li + 1;
+      if (flag == 1) {
+        offset = val;
+        if (named >= 0) next = named;
+      }
+      if (next <= li) break;
+      li = next;
+    }
+    out[oi] = result;
+    return;
+  }
   for (int li = 0; li < num_layers; ++li) {
     const int l = px.lab[li];
     if (l == 0 || l == b3d::kMissing) break;
@@ -541,16 +606,17 @@ Plan plan_layered(int n, int h, int w, int r, const B3dLayerDesc* layers,
   return p;
 }
 
-template <int G, int kMaxC, bool kChunks, bool kSpill>
+template <int G, int kMaxC, bool kChunks, bool kSpill, bool kRouted>
 cudaError_t launch_layered(const int32_t* depth, int32_t* out, int n, int h,
                            int w, int r, float scale,
                            const B3dLayerDesc* layers, int num_layers,
                            int slots, const int32_t* conditions, int num_cond,
-                           int2* spill, int smem, cudaStream_t stream) {
+                           int2* spill, int smem,
+                           unsigned long long* counts, cudaStream_t stream) {
   // two lanes per pixel run best with 6 blocks of 256 threads per SM (40
   // registers a thread), the other groupings with what they need
-  auto kernel =
-      evaluate_layered_wide_kernel<G, G == 2 ? 6 : 1, kMaxC, kChunks, kSpill>;
+  auto kernel = evaluate_layered_wide_kernel<G, G == 2 ? 6 : 1, kMaxC,
+                                             kChunks, kSpill, kRouted>;
   static bool raised[64] = {};
   cudaError_t e = allow_smem(kernel, smem, raised);
   if (e != cudaSuccess) return e;
@@ -561,7 +627,7 @@ cudaError_t launch_layered(const int32_t* depth, int32_t* out, int n, int h,
     kernel<<<grid, kLayeredThreads, smem, stream>>>(
         depth + static_cast<size_t>(i0) * h * w,
         out + static_cast<size_t>(i0) * hl * wl, h, w, r, scale, layers,
-        num_layers, slots, conditions, num_cond, spill);
+        num_layers, slots, conditions, num_cond, spill, counts);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -623,6 +689,53 @@ extern "C" long long b3d_layered_spill(int n, int h, int w, int r,
   return per_launch * (h / r) * (w / r) * layered_slots(layers, num_layers);
 }
 
+namespace {
+
+// The general kernel's launch for the plan p (kRouted: the routed
+// instantiation, which adds to `counts`).
+template <bool kRouted>
+cudaError_t launch_wide(const Plan& p, int max_classes, const int32_t* depth,
+                        int32_t* out, int n, int h, int w, int r, float scale,
+                        const B3dLayerDesc* layers_dev, int num_layers,
+                        int slots, const int32_t* conditions, int num_cond,
+                        int2* spill, unsigned long long* counts,
+                        cudaStream_t s) {
+#define B3D_ARGS                                                               \
+  depth, out, n, h, w, r, scale, layers_dev, num_layers, slots, conditions,    \
+      num_cond, spill, p.smem, counts, s
+#define B3D_PICK(G, SPILL)                                                     \
+  (max_classes > 16                                                            \
+       ? launch_layered<G, 16, true, SPILL, kRouted>(B3D_ARGS)                 \
+   : max_classes > 8 ? launch_layered<G, 16, false, SPILL, kRouted>(B3D_ARGS)  \
+                     : launch_layered<G, 8, false, SPILL, kRouted>(B3D_ARGS))
+#define B3D_LAUNCH(G)                                                          \
+  case G:                                                                      \
+    return B3D_PICK(G, false);
+  if (p.spill) return B3D_PICK(kMaxLanes, true);
+  switch (p.lanes) {
+    B3D_LAUNCH(1)
+    B3D_LAUNCH(2)
+    B3D_LAUNCH(4)
+    B3D_LAUNCH(8)
+    B3D_LAUNCH(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef B3D_LAUNCH
+#undef B3D_PICK
+#undef B3D_ARGS
+}
+
+int max_layer_classes(const B3dLayerDesc* layers, int num_layers) {
+  int max_classes = 0;
+  for (int i = 0; i < num_layers; ++i) {
+    max_classes = layers[i].classes > max_classes ? layers[i].classes : max_classes;
+  }
+  return max_classes;
+}
+
+}  // namespace
+
 // depth: (n, h, w) int32; out: (n, h / r, w / r) int32; conditions:
 // (num_cond, 2) int32; all device pointers.  layers: host array of
 // num_layers descriptors, layers_dev the same array in device memory.
@@ -645,10 +758,7 @@ extern "C" int b3d_evaluate_layered(const int32_t* depth, int32_t* out, int n,
   if (pixels == 0) return static_cast<int>(cudaSuccess);
   const Plan p = plan_layered(n, h, w, r, layers, num_layers, lanes);
   if (p.spill && spill == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int max_classes = 0;
-  for (int i = 0; i < num_layers; ++i) {
-    max_classes = layers[i].classes > max_classes ? layers[i].classes : max_classes;
-  }
+  const int max_classes = max_layer_classes(layers, num_layers);
   const int slots = static_cast<int>(layered_slots(layers, num_layers));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -682,34 +792,34 @@ extern "C" int b3d_evaluate_layered(const int32_t* depth, int32_t* out, int n,
 #undef B3D_SMALL
     return static_cast<int>(e);
   }
-#define B3D_ARGS                                                               \
-  depth, out, n, h, w, r, scale, layers_dev, num_layers, slots, conditions,    \
-      num_cond, spill, p.smem, s
-#define B3D_PICK(G, SPILL)                                                     \
-  (max_classes > 16  ? launch_layered<G, 16, true, SPILL>(B3D_ARGS)            \
-   : max_classes > 8 ? launch_layered<G, 16, false, SPILL>(B3D_ARGS)           \
-                     : launch_layered<G, 8, false, SPILL>(B3D_ARGS))
-#define B3D_LAUNCH(G)                                                          \
-  case G:                                                                      \
-    e = B3D_PICK(G, false);                                                    \
-    break;
-  if (p.spill) {
-    e = B3D_PICK(kMaxLanes, true);
-  } else {
-    switch (p.lanes) {
-      B3D_LAUNCH(1)
-      B3D_LAUNCH(2)
-      B3D_LAUNCH(4)
-      B3D_LAUNCH(8)
-      B3D_LAUNCH(16)
-      default:
-        e = cudaErrorInvalidValue;
-    }
+  return static_cast<int>(launch_wide<false>(
+      p, max_classes, depth, out, n, h, w, r, scale, layers_dev, num_layers,
+      slots, conditions, num_cond, spill, nullptr, s));
+}
+
+// K1 for a routed model, as b3d_evaluate_layered, with conditions
+// (num_cond, 3) int32 rows (flag, value, layer) and counts: (num_layers,
+// 3) uint64 routing counters in device memory (per layer the pixels that
+// walk it, the warp tasks that walk it, their pixel slots), which the
+// launch adds to.  Always the general kernel: the parameter kernel reads
+// two-column rows only.
+extern "C" int b3d_evaluate_layered_routed(
+    const int32_t* depth, int32_t* out, int n, int h, int w, int r,
+    float scale, const B3dLayerDesc* layers, const B3dLayerDesc* layers_dev,
+    int num_layers, const int32_t* conditions, int num_cond, int lanes,
+    int2* spill, unsigned long long* counts, void* stream) {
+  if (!layered_args_ok(r, layers, num_layers, num_cond) || n < 0 ||
+      layers_dev == nullptr || counts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef B3D_LAUNCH
-#undef B3D_PICK
-#undef B3D_ARGS
-  return static_cast<int>(e);
+  const long long pixels = static_cast<long long>(n) * (h / r) * (w / r);
+  if (pixels == 0) return static_cast<int>(cudaSuccess);
+  const Plan p = plan_layered(n, h, w, r, layers, num_layers, lanes);
+  if (p.spill && spill == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_wide<true>(
+      p, max_layer_classes(layers, num_layers), depth, out, n, h, w, r, scale,
+      layers_dev, num_layers, static_cast<int>(layered_slots(layers, num_layers)),
+      conditions, num_cond, spill, counts, static_cast<cudaStream_t>(stream)));
 }
 
 // ---------------------------------------------------------------------------

@@ -45,7 +45,19 @@ def _rot2(a):
     return np.array([[c, -s], [s, c]], np.float32)
 
 
-def hand_cloud(rng, flex_scale=1.0, detail=0.0):
+def shape_class(flex):
+    """The shape class 0..7 of a hand's five finger flexes (as
+    :func:`hand_cloud` records them): bit 0 finger 0's flex > 0.5, bit 1
+    finger 1's, bit 2 the mean of fingers 2-4's.  A fixed partition of the
+    generator's own pose parameters (Keskin et al., ECCV 2012, cluster
+    real poses instead); at ``flex_scale`` 1.0 each class takes an eighth
+    of the draws."""
+    f = np.asarray(flex, np.float64)
+    return (int(f[0] > 0.5) | int(f[1] > 0.5) << 1
+            | int(f[2:5].mean() > 0.5) << 2)
+
+
+def hand_cloud(rng, flex_scale=1.0, detail=0.0, flexes=None):
     """One articulated RIGHT hand as (P, 3) float32 points in PIXEL
     units (1 unit projects to ~1 pixel at table depth; +y toward the
     fingers, z = height above the palm plane) + (P, 3) uint8 paint colors.
@@ -59,7 +71,9 @@ def hand_cloud(rng, flex_scale=1.0, detail=0.0):
     Fingers: 3-segment capsule chains; per-joint flex angles are random up
     to ``flex_scale`` — flexed chains fold OVER the palm (the caller's
     z-buffer occludes palm points underneath).  Density ~1.4 points/px so
-    the splat is hole-free after fill_holes.
+    the splat is hole-free after fill_holes.  ``flexes``, when a list,
+    receives the hand's five finger flexes (the draws are the same either
+    way).
     """
     # sized so hand + forearm + extended fingers stay inside the pipeline's
     # 448x512 crop window at max scale INCLUDING the ~1.18x perspective
@@ -101,6 +115,7 @@ def hand_cloud(rng, flex_scale=1.0, detail=0.0):
     cols.append(np.tile(np.array(PALM_COLOR, np.uint8), (n_a, 1)))
 
     # fingers: 3-segment chains from the palm rim (+y = away from the arm)
+    drawn = []
     for k in range(5):
         base_ang = np.deg2rad(30.0 + 30.0 * k)  # spread across the top
         base_ang += rng.uniform(-0.09, 0.09)
@@ -113,6 +128,7 @@ def hand_cloud(rng, flex_scale=1.0, detail=0.0):
         )
         seg_rad = np.array([13.5, 11.5, 9.5]) * scale
         flex = rng.uniform(0.0, 1.0) * flex_scale  # 1 folds over the palm
+        drawn.append(float(flex))
         j_ang = np.deg2rad(
             np.array([
                 rng.uniform(-8, 20) + 62 * flex,
@@ -155,6 +171,8 @@ def hand_cloud(rng, flex_scale=1.0, detail=0.0):
             )
             pos = pos + d3 * seg_len[s]
 
+    if flexes is not None:
+        flexes.append(drawn)
     return np.concatenate(pts).astype(np.float32), np.concatenate(cols)
 
 
@@ -316,15 +334,20 @@ def compose(table_z, layers):
 
 def articulated_scene(intrin, rng, two_hands=False, flex_scale=1.0,
                       height_range=(260.0, 420.0), detail=0.0,
-                      noise_scale=0.0, rigged=False):
+                      noise_scale=0.0, rigged=False, flexes=None):
     """A full-res articulated-hand frame over a tilted table.
 
     One random-pose right hand (``two_hands=False``, the training
     generator), or a right + mirrored-left pair placed left/right like the
     instrument's operating pose (``two_hands=True``, the bench scene).
     ``rigged=True`` swaps the point-primitive hand for the skinned
-    21-bone rig with an opposable thumb (:mod:`.rigged`).
+    21-bone rig with an opposable thumb (:mod:`.rigged`).  ``flexes``,
+    when a list, receives each point-primitive hand's five finger flexes
+    in drawing order (:func:`shape_class`); the frame is the same.
     Returns (depth uint16, color uint8)."""
+    if rigged and flexes is not None:
+        raise ValueError("articulated_scene: flexes are recorded for the "
+                         "point-primitive hand only")
     h, w = intrin.height, intrin.width
     tz = table_depth(intrin)
     layers = []
@@ -342,7 +365,7 @@ def articulated_scene(intrin, rng, two_hands=False, flex_scale=1.0,
                 rng, flex_scale=flex_scale, detail=detail)
         else:
             local, cols = hand_cloud(rng, flex_scale=flex_scale,
-                                     detail=detail)
+                                     detail=detail, flexes=flexes)
         cy = rng.uniform(0.38, 0.72) * h
         height = rng.uniform(*height_range)
         rot = rng.uniform(-0.45, 0.45)

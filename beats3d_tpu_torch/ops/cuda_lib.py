@@ -162,6 +162,11 @@ def bind_forest(lib):
         vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp,
     ]
     lib.b3d_evaluate_layered.restype = i
+    if hasattr(lib, "b3d_evaluate_layered_routed"):    # an earlier source
+        lib.b3d_evaluate_layered_routed.argtypes = [     # may lack it
+            vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp, vp,
+        ]
+        lib.b3d_evaluate_layered_routed.restype = i
     lib.b3d_forest_spill.argtypes = [i, i, i, i, i, i, i, i]
     lib.b3d_forest_spill.restype = ll
     lib.b3d_evaluate_forest.argtypes = [

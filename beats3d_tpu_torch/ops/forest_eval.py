@@ -171,20 +171,28 @@ def evaluate_tree(depth, tables: Tuple):
 
 def composite_labels(label_images, conditions):
     """Combine per-layer label images (M, N, Hl, Wl) into final class ids
-    through the conditions table (K, 2): per pixel, walk the layers with a
-    running offset; row ``conditions[offset + label - 1]`` = (0, CLASS)
-    emits CLASS, (1, NEXT) continues at offset NEXT; a label of 0 or 65535
-    leaves the pixel unlabelled (65535).  Returns (N, Hl, Wl) in the label
-    images' dtype."""
+    through the conditions table (K, 2) or (K, 3): per pixel, walk the
+    layers with a running offset from layer 0; row
+    ``conditions[offset + label - 1]`` = (0, CLASS) emits CLASS, (1, NEXT)
+    continues at the next layer with offset NEXT, (1, NEXT, LAYER) at layer
+    LAYER (-1: the next) with offset NEXT; a label of 0 or 65535, a row
+    that names no later layer, or the end of the layers leaves the pixel
+    unlabelled (65535).  A two-column table walks layer l at step l.
+    Returns (N, Hl, Wl) in the label images' dtype."""
     k = conditions.shape[0]
     cond = conditions.to(torch.int64)
     lab = label_images.to(torch.int64)
+    m = lab.shape[0]
     out_shape = lab.shape[1:]
     dev = lab.device
     offset = torch.zeros(out_shape, dtype=torch.int64, device=dev)
+    layer = torch.zeros(out_shape, dtype=torch.int64, device=dev)
     out = torch.full(out_shape, MAX_UINT16, dtype=torch.int64, device=dev)
     done = torch.zeros(out_shape, dtype=torch.bool, device=dev)
-    for l in lab:
+    routed = cond.shape[1] == 3
+    for step in range(m):
+        l = (torch.gather(lab, 0, layer.clamp(max=m - 1)[None])[0]
+             if routed else lab[step])
         invalid = (l == 0) | (l == MAX_UINT16)
         row_idx = (offset + l - 1).clamp(0, k - 1)
         flag = cond[:, 0][row_idx]
@@ -192,9 +200,32 @@ def composite_labels(label_images, conditions):
         active = (~done) & (~invalid)
         emit = active & (flag == 0)
         out = torch.where(emit, val, out)
-        offset = torch.where(active & (flag == 1), val, offset)
+        move = active & (flag == 1)
+        offset = torch.where(move, val, offset)
         done = done | invalid | emit
+        if routed:
+            named = cond[:, 2][row_idx]
+            nxt = torch.where(move & (named >= 0), named, layer + 1)
+            done = done | (nxt <= layer) | (nxt >= m)
+            layer = nxt
     return out.to(label_images.dtype)
+
+
+def routing_counts(label_images, pixels_per_task: int):
+    """Per layer of (M, N, Hl, Wl) label images, (M, 3) int64: the pixels
+    that walked it (label not 65535), the warp tasks that walked it (runs
+    of ``pixels_per_task`` pixels along a label row, as a warp of the
+    kernel takes them, holding at least one such pixel) and those tasks'
+    pixel slots (tasks x ``pixels_per_task``)."""
+    walked = label_images != MAX_UINT16
+    m, n, hl, wl = walked.shape
+    pad = -wl % pixels_per_task
+    tiles = torch.nn.functional.pad(walked, (0, pad)).reshape(
+        m, n, hl, -1, pixels_per_task).any(dim=-1)
+    pixels = walked.reshape(m, -1).sum(dim=1)
+    tasks = tiles.reshape(m, -1).sum(dim=1)
+    return torch.stack([pixels, tasks, tasks * pixels_per_task],
+                       dim=1).to(torch.int64)
 
 
 def layered_visits(depth, layer_tables: Tuple, *, filter_specs: Tuple,
@@ -222,16 +253,21 @@ def layered_visits(depth, layer_tables: Tuple, *, filter_specs: Tuple,
 
 def run_layered(depth, layer_tables: Tuple, conditions, *,
                 filter_specs: Tuple, labels_reduce: int,
-                scale_factor: float = 1.0):
+                scale_factor: float = 1.0, counts=None,
+                pixels_per_task: int = 8):
     """Every layer's forest in order (a filtered layer evaluates only the
     pixels an earlier layer labelled ``filter_class``), then the conditions
     composite.  filter_specs: per layer (filter_model | None,
-    filter_class | None).  Returns (N, H//r, W//r) in the depth's dtype."""
+    filter_class | None).  ``counts``: an (M, 3) int64 tensor that receives
+    :func:`routing_counts` of the layers' label images.  Returns
+    (N, H//r, W//r) in the depth's dtype."""
     label_images = []
     for tables, (fm, fc) in zip(layer_tables, filter_specs):
         kw = dict(labels_reduce=labels_reduce, scale_factor=scale_factor)
         if fm is not None:
             kw.update(filter_images=label_images[fm], filter_class=int(fc))
         label_images.append(evaluate_forest(depth, tables, **kw))
-    return composite_labels(torch.stack(label_images), conditions)
-
+    stack = torch.stack(label_images)
+    if counts is not None:
+        counts += routing_counts(stack, pixels_per_task).to(counts.device)
+    return composite_labels(stack, conditions)

@@ -42,14 +42,31 @@ def _check_levels(what, levels):
             f"2**D - 1 rows in 32 bits (D <= {MAX_LEVELS})")
 
 
+def task_pixels(layers, lanes: int = 0) -> int:
+    """Label pixels per warp task of K1 at ``lanes`` lanes a pixel; 0: one
+    lane per tree of the largest layer, at most 16 (the kernel starts from
+    that, and on a card halves it where the lanes would fill the card more
+    than 8 times over)."""
+    if not lanes:
+        most = max(l.forest.num_trees for l in layers)
+        lanes = 1
+        while lanes < most and lanes < 16:
+            lanes *= 2
+    return 32 // lanes
+
+
 def evaluate_layered_plain(depth, layers, conditions, *, labels_reduce: int,
-                           scale_factor: float = 1.0):
-    """The kernel's plain version, on any device."""
+                           scale_factor: float = 1.0, counts=None,
+                           lanes: int = 0):
+    """The kernel's plain version, on any device; ``counts`` receives the
+    routing counts (``forest_eval.routing_counts``) at ``lanes`` lanes a
+    pixel (:func:`task_pixels`)."""
     return forest_eval.run_layered(
         depth, tuple(l.forest.tables() for l in layers), conditions,
         filter_specs=tuple((l.filter_model, l.filter_model_class)
                            for l in layers),
         labels_reduce=labels_reduce, scale_factor=scale_factor,
+        counts=counts, pixels_per_task=task_pixels(layers, lanes),
     )
 
 
@@ -112,34 +129,50 @@ def _ptr(t):
 
 def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
                           scale_factor: float = 1.0, descs=None,
-                          lanes: int = 0):
+                          lanes: int = 0, counts=None):
     """All layers + the composite over the stride-r label grid.
 
     depth: (N, H, W); layers: sequence of ``models.layered.LayerSpec``
     (repacked ``header``/``pdf`` tables for the kernel, per-level
     ``forest`` tables for the plain version, filter); conditions: (K, 2)
-    int32.  Returns (N, H//r, W//r) composite labels, 65535 = unlabelled.
-    On CUDA: depth must be contiguous int32, the tables and conditions on
-    the same card; returns int32.  ``descs``: ``layer_descs(layers)``, built
-    here when not given.  ``lanes``: lanes per pixel, 0 to let the kernel
-    choose from the model and the input size (as the pipeline does); the
-    others (1, 2, 4, 8, 16) serve the card tests and kernel_bench's sweep.
-    On the CPU: the plain version, in the depth's dtype.
+    int32, or (K, 3) for a routed model (rows that name the layer the
+    composite continues at).  Returns (N, H//r, W//r) composite labels,
+    65535 = unlabelled.  On CUDA: depth must be contiguous int32, the
+    tables and conditions on the same card; returns int32.  ``descs``:
+    ``layer_descs(layers)``, built here when not given.  ``lanes``: lanes
+    per pixel, 0 to let the kernel choose from the model and the input
+    size (as the pipeline does); the others (1, 2, 4, 8, 16) serve the card
+    tests and kernel_bench's sweep.  ``counts``: a routed model's (layers,
+    3) int64 routing counters on the depth's device (``RoutingCounts.acc``),
+    which the launch adds to; a two-column table takes none.
+    A routed table runs the general kernel's routed instantiation, never
+    the parameter kernel.  On the CPU: the plain version, in the depth's
+    dtype.
     """
     if depth.device.type != "cuda":
         return evaluate_layered_plain(
             depth, layers, conditions, labels_reduce=labels_reduce,
-            scale_factor=scale_factor)
+            scale_factor=scale_factor,
+            counts=counts if conditions.shape[1] == 3 else None, lanes=lanes)
     if depth.dtype != torch.int32 or not depth.is_contiguous() or depth.dim() != 3:
         raise ValueError(
             f"evaluate_layered_cuda: depth must be contiguous (N, H, W) int32, "
             f"got {depth.dtype} {tuple(depth.shape)}")
     if (conditions.device != depth.device or conditions.dtype != torch.int32
             or not conditions.is_contiguous() or conditions.dim() != 2
-            or conditions.shape[1] != 2 or conditions.shape[0] < 1):
+            or conditions.shape[1] not in (2, 3) or conditions.shape[0] < 1):
         raise ValueError(
             "evaluate_layered_cuda: conditions must be a contiguous (K, 2) "
-            "int32 tensor of K >= 1 rows on the depth's device")
+            "or (K, 3) int32 tensor of K >= 1 rows on the depth's device")
+    routed = conditions.shape[1] == 3
+    shape = (len(layers), 3)
+    if routed and (counts is None or counts.device != depth.device
+                   or counts.dtype != torch.int64
+                   or tuple(counts.shape) != shape
+                   or not counts.is_contiguous()):
+        raise ValueError(
+            f"evaluate_layered_cuda: counts must be a contiguous {shape} "
+            f"int64 tensor on the depth's device")
     if descs is None:
         descs = layer_descs(layers, depth.device)
     elif descs.device != depth.device or len(descs) != len(layers):
@@ -155,14 +188,17 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
     lib = cuda_lib.library()
     spill = _spill(lib.b3d_layered_spill(n, h, w, r, descs.host, len(descs),
                                          int(lanes)), depth.device)
-    with torch.cuda.device(depth.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.b3d_evaluate_layered(
-            depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
+    args = (depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
             descs.host, descs.dev.data_ptr(), len(descs),
             conditions.data_ptr(), conditions.shape[0], int(lanes),
-            _ptr(spill), stream,
-        )
+            _ptr(spill))
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if routed:
+            status = lib.b3d_evaluate_layered_routed(
+                *args, counts.data_ptr(), stream)
+        else:
+            status = lib.b3d_evaluate_layered(*args, stream)
     cuda_lib.check(status, "evaluate_layered_cuda")
     evaluate_layered_cuda.launches += 1
     return out

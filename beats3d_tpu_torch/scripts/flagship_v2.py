@@ -101,6 +101,20 @@ def eval_chunked(model, depth, plain=False):
     return np.concatenate(outs)
 
 
+def recipe_converter(out_dir, intrin, max_images, *, device, log=print):
+    """The recipe's converter (colour-EM labels, plane fit, augmentation,
+    smoothing) writing to ``out_dir``, its rng from CONVERTER_SEED."""
+    cfg = DatagenConfig(
+        num_colors=6, color_em_tries=6, color_em_iterations=24,
+        plane_candidates=8192, plane_z_threshold=40.0,
+        scale_variance=0.04, gaussian_noise=1.5,
+        max_images=max_images,
+    )
+    return LiveDataConvert(out_dir, intrin, cfg,
+                           rng=np.random.default_rng(CONVERTER_SEED),
+                           log=log, device=device)
+
+
 def step_datagen(intrin, n_train, n_test, *, device, keep=False, log=print):
     """Step 1: the recipe's frames through the converter.  Returns
     (dataset config, frames): with ``keep`` the frames stay in memory as
@@ -120,15 +134,8 @@ def step_datagen(intrin, n_train, n_test, *, device, keep=False, log=print):
         return ds_cfg, None
     if os.path.exists(DS):
         shutil.rmtree(DS)
-    cfg = DatagenConfig(
-        num_colors=6, color_em_tries=6, color_em_iterations=24,
-        plane_candidates=8192, plane_z_threshold=40.0,
-        scale_variance=0.04, gaussian_noise=1.5,
-        max_images=n_train + n_test,
-    )
-    conv = LiveDataConvert(DS, intrin, cfg,
-                           rng=np.random.default_rng(CONVERTER_SEED),
-                           log=log, device=device)
+    conv = recipe_converter(DS, intrin, n_train + n_test, device=device,
+                            log=log)
     frames = None
     if keep:
         frames = []

@@ -10,6 +10,10 @@
 * Stage stamps (:class:`StageClock`, :func:`stage_ms`): the device time of
   each stage of a captured frame program, summed on the card
   (``csrc/stage_clock.cu``) into a process-wide registry.
+* Routing counters (:class:`RoutingCounts`, :func:`counters`): per layer of
+  a routed layered model, the pixels and warp tasks that walked it, added
+  by K1 on the card (or by its plain version) into a process-wide
+  registry.
 * :class:`FrameTimeLog`: a frame-time ring buffer (reference
   engine/window.py:150-155).
 * :func:`graph_ms`, :func:`host_ms`: the device timers of the port's
@@ -157,6 +161,54 @@ def reset_stages():
     """Zero the registry's accumulators (a window starts here)."""
     for acc in _STAGE_ACC.values():
         acc.zero_()
+
+
+# -- routing counters ----------------------------------------------------------
+
+COUNT_FIELDS = ("pixels", "tasks", "slots")
+# every routed model's counters, in the order the models were built; kept
+# for the life of the process (a few hundred bytes each), so that a reader
+# after a model is dropped still sees what it counted
+_COUNTERS: List["RoutingCounts"] = []
+
+
+class RoutingCounts:
+    """The routing counters of one routed layered model on one device:
+    ``acc``, (layers, 3) int64, per layer the pixels that walked it, the
+    warp tasks that walked it (a warp's pass over the layer with at least
+    one such pixel) and those tasks' pixel slots.  K1 adds to it with one
+    atomic per warp and layer, inside a captured graph as outside; the
+    plain version adds the same counts from its label images.  ``experts``:
+    the sibling layers (two or more filtered on one layer)."""
+
+    def __init__(self, num_layers: int, experts, device):
+        self.experts = sorted(int(l) for l in experts)
+        self.acc = torch.zeros((num_layers, len(COUNT_FIELDS)),
+                               dtype=torch.int64, device=device)
+        _COUNTERS.append(self)
+
+
+def counters() -> List[Dict[str, List[int]]]:
+    """One row per routed model that has counted something, in build order:
+    {"pixels", "tasks", "slots": per layer, "experts": the sibling layers}
+    (one host read per model, after a synchronise)."""
+    out = []
+    for c in _COUNTERS:
+        if c.acc.device.type == "cuda":
+            torch.cuda.synchronize(c.acc.device)
+        total = c.acc.cpu()
+        if not int(total.sum()):
+            continue
+        row = {f: total[:, i].tolist() for i, f in enumerate(COUNT_FIELDS)}
+        row["experts"] = c.experts
+        out.append(row)
+    return out
+
+
+def reset_counters():
+    """Zero every routing counter (a window starts here)."""
+    for c in _COUNTERS:
+        c.acc.zero_()
 
 
 class FrameTimeLog:

@@ -93,6 +93,16 @@ Then drives the port's paths:
   its device time beside D=16's, 4 frames card against CPU, and the
   tapping session (``scripts.bz3d_session_v2``) with it and with the full
   flagship;
+* Keskin et al.'s routed-expert model (``models/keskin_len``, 10 layers,
+  keskin_path): 16 two-hand scenes of varied hand shapes (flex 1.0)
+  through a live pipelined BeatsApp and the batched call, K1's routed
+  instantiation traced per call by name; the routing counters, zeroed
+  just before the batched window, equal to the calls times the plain
+  path's counts on the call's 32 crops; K1 against plain on the live and
+  batched crops and the golden frames (labels and routing counts equal);
+  the batched replay against the eager program; per hand, the pixels each
+  expert walked and the share of the hand's routed pixels that its most
+  common expert took;
 * pose fit: ``fit_cylinder`` at 848x480 for 200 iterations on the card and
   on the CPU (the same costs and accepted poses), profiled, then
   apps/pose_fit_torch.py on the synthetic source (B1 once);
@@ -135,7 +145,8 @@ Then drives the port's paths:
 Each path checks that its kernels ran on it and that the outputs are right.
 Any failure raises (exit code != 0).  The phases that count K1 in a
 conditional node's body by its traced name (components_large,
-graph_vs_eager, main_path, devtime_path, bag_path, serving_path) each run
+graph_vs_eager, main_path, devtime_path, bag_path, serving_path,
+keskin_path) each run
 in a process of its own (``chip_smoke.py --phase NAME``, :func:`fresh`).
 
 Kernel times (``ms``) are device times from a CUDA graph replay
@@ -212,7 +223,8 @@ from beats3d_tpu_torch.runtime.viewer import ViewerServer  # noqa: E402
 from beats3d_tpu_torch.train import DecisionTreeTrainer, train_forest  # noqa: E402
 from beats3d_tpu_torch.utils import devtime  # noqa: E402
 from beats3d_tpu_torch.utils.intrinsics import CameraIntrinsics  # noqa: E402
-from beats3d_tpu_torch.utils.profiler import graph_ms, host_ms  # noqa: E402
+from beats3d_tpu_torch.utils.profiler import (  # noqa: E402
+    graph_ms, host_ms, reset_counters)
 
 FLAGSHIP = kb.FLAGSHIP
 K1 = forest_eval_cuda.evaluate_layered_cuda
@@ -291,6 +303,14 @@ REFIT_DEV_MIXED, REFIT_DEV_CUTOFF = 1e-6, 1e-3 + 1e-6
 SERVING_TICKS, SERVING_PROFILED, SERVING_BATCHES = 60, 16, 5
 SERVING_CPU_FRAMES = 4
 SESSION_FRAMES = 120
+# keskin_path: the routed model, its cell's scenes (two hands at flex 1.0 in
+# its height range), live ticks and batched calls profiled, and K1 traced
+# by the general kernel's name (a routed table runs only there)
+KESKIN = os.path.join(HERE, "models", "keskin_len")
+KESKIN_FLEX, KESKIN_HEIGHTS = 1.0, (260.0, 420.0)
+KESKIN_TICKS, KESKIN_BATCHES = 16, 5
+KESKIN_KERNELS = (("k1", K1, "evaluate_layered_wide_kernel"),) + \
+    FRAME_KERNELS[1:]
 LEVEL1_TICKS = 16                # BeatsApp at depth_mm_level 1
 # (P-number, probe module, wrapper, the case shown in the kernels line, CUDA
 # source, the pallas_call it replaces, operations per element of x per count
@@ -2015,6 +2035,149 @@ def phase_serving_path(inp, smi):
         v["max_abs_err"] for v in k1.values()))
 
 
+def routed_vs_plain(model, depth):
+    """K1 on a routed model against its plain version, each adding to
+    counters of its own (the plain path's at the kernel's pixels per warp
+    task): label mismatches, the largest label gap, whether the counts are
+    equal, and the kernel's counts."""
+    got_counts = torch.zeros_like(model.counts.acc)
+    got = K1(depth, model.layers, model.conditions, labels_reduce=2,
+             counts=got_counts)
+    torch.cuda.synchronize()
+    tasks, slots = got_counts[:, 1], got_counts[:, 2]
+    ppt = int(slots[0]) // max(int(tasks[0]), 1)
+    want_counts = torch.zeros_like(got_counts)
+    want = forest_eval_cuda.evaluate_layered_plain(
+        depth, model.layers, model.conditions, labels_reduce=2,
+        counts=want_counts, lanes=32 // max(ppt, 1))
+    torch.cuda.synchronize()
+    return dict(mismatches=int((got != want).sum()),
+                max_abs_err=int((got - want).abs().max()),
+                counts_equal=bool(torch.equal(got_counts, want_counts)
+                                  and torch.equal(slots, tasks * ppt)),
+                pixels_per_task=ppt), got_counts
+
+
+def phase_keskin_path(inp, smi):
+    """Keskin et al.'s routed-expert model (``models/keskin_len``: the
+    flagship's coarse layer, a router of 9 classes, 8 experts of 7) on the
+    card, on its cell's kind of scene (two hands at flex 1.0, seeds
+    1000-1015): a live pipelined BeatsApp and the batched call, each in a
+    torch.profiler window with K1's routed instantiation traced by name
+    and held to the graphs' replays; the routing counters, zeroed just
+    before the batched window, equal to the window's calls (and its traced
+    warm-up) times the plain path's counts on the call's 32 crops; K1
+    against plain on the live and batched crops and the golden frames (0
+    label mismatches, equal counts) with its device time; the batched
+    replay against the eager program; per hand (crop), the pixels each
+    expert walked.  Returns the kernels line's entry of the routed K1."""
+    dev, intrin, plane = inp.frames.device, inp.intrin, inp.plane
+    model = kb.load_flagship(dev, KESKIN)
+    scenes = [articulated_scene(intrin, np.random.default_rng(1000 + t),
+                                two_hands=True, flex_scale=KESKIN_FLEX,
+                                height_range=KESKIN_HEIGHTS)[0]
+              for t in range(BATCH)]
+    frames = torch.as_tensor(np.stack(scenes)).to(dev).to(torch.int32)
+    source = bz3d_session_v2.FramesSource(
+        intrin, scenes * (1 + (AppConfig().warmup_frames + 2 + KESKIN_TICKS)
+                          // BATCH))
+    app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
+                   log=lambda *a: None)
+    pipe, it = app.pipeline, source.frames()
+    K1.launches = K2.launches = GK.launches = MS.launches = 0
+    for _ in range(app.cfg.warmup_frames + 1):
+        app.tick(next(it))
+    ob = pipe.batch(frames, plane)
+    torch.cuda.synchronize()
+    windows = dict(live_pipelined=profiled(
+        lambda: app.tick(next(it)), KESKIN_TICKS, pipe,
+        kernels=KESKIN_KERNELS))
+    app.flush()
+    reset_counters()
+    windows["batched"] = profiled(lambda: pipe.batch(frames, plane),
+                                  KESKIN_BATCHES, pipe, kernels=KESKIN_KERNELS)
+    window_counts = model.counts.acc.clone()
+    k1_traced = sum(w["traced"]["k1"] for w in windows.values())
+    names = sorted({n for w in windows.values() for n in w["k1"]["names"]})
+
+    diffs = {}
+    crops = kb.hand_crops(pipe, frames, plane)
+    if crops.shape[0] != 2 * BATCH:
+        diffs["crops"] = list(crops.shape)
+    shapes = dict(live=crops[:2].contiguous(), batch=crops,
+                  golden=inp.golden)
+    k1, kernel_counts = {}, {}
+    for name, d in shapes.items():
+        res, kernel_counts[name] = routed_vs_plain(model, d)
+        scratch = torch.zeros_like(model.counts.acc)
+        bytes_moved, ops, visits = kb.k1_work(model, d)
+        bound_ms, bound_by = kb.bound(bytes_moved, ops)
+        k1[name] = dict(
+            res, shape=list(d.shape),
+            ms=graph_ms(lambda: K1(d, model.layers, model.conditions,
+                                   labels_reduce=2, counts=scratch)),
+            plain_ms=host_ms(lambda: forest_eval_cuda.evaluate_layered_plain(
+                d, model.layers, model.conditions, labels_reduce=2),
+                iters=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            pixels_per_layer=[v["steps"] for v in visits])
+        if res["mismatches"] or not res["counts_equal"]:
+            diffs[f"k1 {name}"] = res
+    calls = 1 + KESKIN_BATCHES          # the window's and its warm-up's
+    if not torch.equal(window_counts, calls * kernel_counts["batch"]):
+        diffs["window counts"] = dict(
+            window=window_counts.tolist(),
+            per_call=kernel_counts["batch"].tolist(), calls=calls)
+
+    graph = pipe.graphs[("frame_step_batched", tuple(frames.shape))]
+    got, taken = taken_bodies(graph, lambda: pipe.batch(frames, plane))
+    diff = same_outputs(got, pl.frame_step_batched(pipe, frames, plane))
+    if diff or taken != BATCH_BRANCHES[0]:
+        diffs["batch"] = dict(differing=diff, branches=taken)
+
+    # per hand: the pixels each expert walked in the hand's crop
+    experts = model.counts.experts
+    per_hand = []
+    for i in range(crops.shape[0]):
+        c = torch.zeros_like(model.counts.acc)
+        K1(crops[i:i + 1].contiguous(), model.layers, model.conditions,
+           labels_reduce=2, counts=c)
+        per_hand.append(c[experts, 0].cpu())
+    per_hand = torch.stack(per_hand)
+    routed = per_hand.sum(1)
+    coherence = (per_hand.max(1).values[routed > 0].double()
+                 / routed[routed > 0].double())
+    batch = kernel_counts["batch"].cpu()
+    pixels, tasks = batch[experts, 0], batch[experts, 1]
+    hands = (ob["g_info"][:, :, 0] > 0).sum(dim=1).cpu().numpy()
+    say("keskin_path", card=smi, layers=len(model.layers),
+        condition_rows=int(model.conditions.shape[0]),
+        k1_launches_traced=k1_traced, k1_names=names,
+        k1_in_place_ms={n: w["k1"]["device_ms_per_launch"]
+                        for n, w in windows.items()},
+        profiled=windows, k1_vs_plain=k1,
+        counts_per_batched_call={f: batch[:, i].tolist() for i, f in
+                                 enumerate(("pixels", "tasks", "slots"))},
+        expert_layers=experts,
+        expert_pixel_shares=(pixels.double() / pixels.sum()).tolist(),
+        expert_lane_use=float(pixels.sum()) / float(
+            batch[experts, 2].sum()),
+        experts_per_router_task=float(tasks.sum()) / float(batch[1, 1]),
+        hand_pixels_per_expert=per_hand.tolist(),
+        hand_top_expert_share=coherence.tolist(),
+        hand_top_expert_share_mean=float(coherence.mean()),
+        hand_top_expert_share_min=float(coherence.min()),
+        hands_per_frame=hands.tolist(), differing=diffs)
+    if (diffs or k1_traced < 1 or (hands == 0).any()
+            or not all("evaluate_layered_wide_kernel" in n for n in names)
+            or not bool((pixels > 0).any())):
+        raise AssertionError(f"keskin_path: {diffs}, K1 traced {k1_traced} "
+                             f"as {names}, hands {hands.tolist()}, expert "
+                             f"pixels {pixels.tolist()}")
+    return dict(k1["batch"], launches=k1_traced, max_abs_err=max(
+        v["max_abs_err"] for v in k1.values()))
+
+
 def cylinder_case(intrin, dev):
     """tests/test_render.py's pose-fit geometry at ``intrin``'s size: the
     observed depth of a known cylinder (rendered on ``dev`` and on the CPU,
@@ -3113,6 +3276,7 @@ def main():
     launches = run("main_path", fresh, "main_path")
     run("devtime_path", fresh, "devtime_path")
     serving = run("serving_path", fresh, "serving_path")
+    keskin = run("keskin_path", fresh, "keskin_path")
     run("pipelined_vs_not", phase_pipelined_vs_not, inp, smi)
     run("card_vs_cpu", phase_card_vs_cpu, inp.model, inp.scenes, inp.plane,
         inp.intrin)
@@ -3192,6 +3356,11 @@ def main():
         entry("evaluate_layered_cuda (serving variant, fine layer D=13)",
               "forest_eval.cu", "beats3d_tpu/ops/forest_eval_pallas.py:2230",
               serving["launches"], serving),
+        entry("evaluate_layered_cuda (routed: models/keskin_len, 10 layers, "
+              "the general kernel's routed instantiation)", "forest_eval.cu",
+              "beats3d_tpu/ops/forest_eval_pallas.py:2230 (its chain "
+              "composite; the JAX package has no routed rows)",
+              keskin["launches"], keskin),
     ] + run("probe_bounds", probe_entries, dev, probe_res, probe_launches)
     say("wall_seconds", **walls)
     print(json.dumps({"kernels": kernels}))
@@ -3210,6 +3379,7 @@ FRESH_PHASES = {"components_large": phase_components_large,
                 "devtime_path": phase_devtime_path,
                 "bag_path": phase_bag_path,
                 "serving_path": phase_serving_path,
+                "keskin_path": phase_keskin_path,
                 "flagship_build": phase_flagship_build}
 
 if __name__ == "__main__":

@@ -1762,3 +1762,143 @@ def test_frame_programs_mean_shift_kernel_against_plain(cuda_dev, bench,
               f"a differing tip coordinate {edge} px from a pixel edge")
     assert gap <= MS_TOL
     assert edge > gap
+
+
+# -- routed models (Keskin et al.'s local expert network) ----------------------
+
+KESKIN = os.path.join(os.path.dirname(HERE), "models", "keskin_len")
+
+
+def _routed(rng_np, dev, experts=8, trees=4, levels=(5, 7, 7), classes=7,
+            r=2):
+    """A coarse layer (2 classes), a router of ``experts`` + 1 classes and
+    ``experts`` experts of ``classes`` classes; router class k -> expert k
+    (layer 1 + k), expert class c -> final c."""
+    coarse = kernel_bench.random_forest(rng_np, trees, levels[0], 2)
+    router = kernel_bench.random_forest(rng_np, trees, levels[1], experts + 1)
+    layers = [(coarse, None, None), (router, 0, 1)] + [
+        (kernel_bench.random_forest(rng_np, trees, levels[2], classes), 1, k)
+        for k in range(1, experts + 1)]
+    conditions = ([[1, 1, 1]] + [[1, 1 + experts, 1 + k]
+                                 for k in range(1, experts + 1)]
+                  + [[0, c] for c in range(1, classes)])
+    return LayeredDecisionForest.from_numpy(
+        layers, conditions, np.full((classes - 1, 4), 255, np.uint8), dev,
+        labels_reduce=r)
+
+
+def _routed_same_as_plain(m, depth, r, scale=1.0, lanes=0):
+    """K1 on a routed model against its plain version: labels equal, and
+    the kernel's routing counts equal the plain path's at the kernel's
+    pixels per warp task.  Returns the kernel's counts."""
+    got_counts = torch.zeros((len(m.layers), 3), dtype=torch.int64,
+                             device=depth.device)
+    got = forest_eval_cuda.evaluate_layered_cuda(
+        depth, m.layers, m.conditions, labels_reduce=r, scale_factor=scale,
+        lanes=lanes, counts=got_counts)
+    torch.cuda.synchronize()
+    tasks, slots = got_counts[:, 1], got_counts[:, 2]
+    assert int(tasks[0]) > 0
+    ppt = int(slots[0]) // int(tasks[0])
+    assert torch.equal(slots, tasks * ppt)
+    want_counts = torch.zeros_like(got_counts)
+    want = forest_eval_cuda.evaluate_layered_plain(
+        depth, m.layers, m.conditions, labels_reduce=r, scale_factor=scale,
+        counts=want_counts, lanes=32 // ppt)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert torch.equal(got_counts, want_counts)
+    return got_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 1, 2, 4, 8, 16])
+def test_routed_kernel_matches_plain(rng_np, cuda_dev, lanes):
+    m = _routed(rng_np, cuda_dev)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 3, 96, 128))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    c = _routed_same_as_plain(m, depth, 2, lanes=lanes)
+    # every expert walked some pixel
+    assert bool((c[2:, 0] > 0).all())
+    if lanes:
+        assert int(c[0, 2]) // int(c[0, 1]) == 32 // lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,scale", [(1, 1.0), (2, 0.5)])
+def test_routed_kernel_scales_and_batches(rng_np, cuda_dev, r, scale):
+    m = _routed(rng_np, cuda_dev, experts=3, classes=5)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 32, 40, 72))
+    _routed_same_as_plain(m, depth.to(cuda_dev).to(torch.int32).contiguous(),
+                          r, scale=scale)
+
+
+@pytest.mark.cuda
+def test_routed_model_of_three_layers_takes_the_general_kernel(rng_np,
+                                                                cuda_dev):
+    """A routed model small enough for the parameter kernel (3 layers) is
+    declined by it: the general kernel's routed instantiation runs, and
+    counts."""
+    m = _routed(rng_np, cuda_dev, experts=1, classes=5)
+    assert len(m.layers) == 3
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 48, 80))
+    c = _routed_same_as_plain(
+        m, depth.to(cuda_dev).to(torch.int32).contiguous(), 2)
+    assert int(c[2, 0]) > 0
+
+
+@pytest.mark.cuda
+def test_three_column_chain_equals_the_chain_on_the_card(rng_np, cuda_dev):
+    """The flagship's kind as a two-column table (parameter kernel) and as
+    three-column rows naming -1 (the routed instantiation): the same
+    labels."""
+    m = _layered(rng_np, cuda_dev, 4, depths=(5, 8))
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 4, 64, 96))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    wide = torch.cat([m.conditions, torch.full(
+        (m.conditions.shape[0], 1), -1, dtype=torch.int32,
+        device=cuda_dev)], 1).contiguous()
+    a = forest_eval_cuda.evaluate_layered_cuda(depth, m.layers, m.conditions,
+                                               labels_reduce=2)
+    counts = torch.zeros((2, 3), dtype=torch.int64, device=cuda_dev)
+    b = forest_eval_cuda.evaluate_layered_cuda(depth, m.layers, wide,
+                                               labels_reduce=2, counts=counts)
+    assert torch.equal(a, b) and bool((a != 65535).any())
+    with pytest.raises(ValueError):             # a routed launch counts
+        forest_eval_cuda.evaluate_layered_cuda(depth, m.layers, wide,
+                                               labels_reduce=2)
+
+
+@pytest.mark.cuda
+def test_routing_counters_add_inside_a_captured_graph(rng_np, cuda_dev):
+    m = _routed(rng_np, cuda_dev, experts=4)
+    depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 64, 96))
+    depth = depth.to(cuda_dev).to(torch.int32).contiguous()
+    once = _routed_same_as_plain(m, depth, 2)
+    m.kernel_descs = forest_eval_cuda.layer_descs(m.layers, cuda_dev)
+    m.run(depth)                                    # warm, on the stream
+    torch.cuda.synchronize()
+    m.counts.acc.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        m.run(depth)
+    assert int(m.counts.acc.sum()) == 0             # captured, not run
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(m.counts.acc, 3 * once)
+
+
+@pytest.mark.cuda
+def test_committed_routed_model_matches_plain(cuda_dev):
+    """models/keskin_len through K1 on the flagship's golden frames and a
+    batch of crops: labels equal the plain path's, counts too."""
+    if not os.path.exists(os.path.join(KESKIN, "model_cfg.json")):
+        pytest.skip("models/keskin_len is not built")
+    m = kernel_bench.load_flagship(cuda_dev, KESKIN)
+    assert len(m.layers) == 10 and m.conditions.shape == (15, 3)
+    data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
+    golden = torch.as_tensor(data["depth"].astype(np.int32)).to(cuda_dev)
+    _routed_same_as_plain(m, golden.contiguous(), 2)
+    crops = golden[:, 16:464, 100:612].repeat(8, 1, 1).contiguous()
+    c = _routed_same_as_plain(m, crops, 2)
+    assert int(c[2:, 0].sum()) > 0
