@@ -59,8 +59,10 @@ import torch
 from .data.synth import articulated_scene, part_labels
 from .models import LayeredDecisionForest
 from .models.forest import PackedForest, forest_dims, kernel_tables
+from .models.layered import run_layered
 from .ops import (components, cuda_lib, forest_eval, forest_eval_cuda,
-                  points, train_features, train_features_cuda)
+                  hand_images_cuda, points, train_features,
+                  train_features_cuda)
 from .ops import plane as plane_ops
 from .runtime import pipeline as pl
 from .train.proposals import make_random_features
@@ -123,8 +125,11 @@ def hand_crops(pipe, frames, plane):
     h, w = frames.shape[1:]
     depth1, grown, _, _ = pl._front(pipe, frames, plane)
     oys, oxs, too_big = pl._crop_origins(grown, cfg, h, w)
-    crops = pl._stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
-    return crops[~too_big].reshape(-1, cfg.crop_h, cfg.crop_w).contiguous()
+    crops, _ = hand_images_cuda.hand_images(
+        depth1, grown, cfg.depth_mm_level, window=(cfg.crop_h, cfg.crop_w),
+        origins=(oys, oxs))
+    crops = crops.reshape(-1, 2, cfg.crop_h, cfg.crop_w)[~too_big]
+    return crops.reshape(-1, cfg.crop_h, cfg.crop_w).contiguous()
 
 
 class HostStreamPlane(plane_ops.CalibratedPlane):
@@ -193,13 +198,18 @@ def ms_labels(inp: BenchInputs):
     pipe, cfg = inp.pipe, inp.pipe.cfg
     h, w = inp.frames.shape[1:]
     r, scale = cfg.labels_reduce, pl._scale(w, cfg)
-    crops, _ = pl._eval_layers(inp.crops, pipe, cfg, scale)
+    crops = inp.crops
+    if pipe.guarded:        # the guard as the pipeline applies it
+        flags = hand_images_cuda.incoherent_images(
+            crops, r, cfg.guard_spread, cfg.guard_tile_frac)
+        crops = torch.where(flags[:, None, None], 0, crops)
+    crops = run_layered(crops, pipe.model, labels_reduce=r,
+                        scale_factor=scale)
     big = torch.stack([pipe.as_depth(oversized(inp.scenes[i], inp.intrin))
                        for i in (1, 4)])
     depth1, grown, _, _ = pl._front(pipe, big, inp.plane)
-    hand = pl._full_stencils(depth1, grown, cfg)
-    lab, _ = pl._eval_layers(hand.reshape(4, h, w), pipe, cfg, scale)
-    full = pl._unmirror(lab.reshape(2, 2, h // r, w // r))
+    lab, _ = pl._hand_eval(pipe, depth1, grown)
+    full = hand_images_cuda.place_labels(lab.reshape(2, 2, h // r, w // r), r)
     return {"live": crops[:2].contiguous(), "batch": crops.contiguous(),
             "rescue": full.reshape(4, h // r, w // r).contiguous()}
 

@@ -189,6 +189,11 @@ def _bind(lib):
     lib.b3d_plane_band_gauss.restype = i
     lib.b3d_mean_shift.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.b3d_mean_shift.restype = i
+    lib.b3d_hand_images.argtypes = [*[vp] * 6, i, vp, vp, vp, *[i] * 10, f,
+                                    vp]
+    lib.b3d_hand_images.restype = i
+    lib.b3d_place_labels.argtypes = [*[vp] * 4, *[i] * 6, vp]
+    lib.b3d_place_labels.restype = i
     lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
     lib.b3d_train_feature_bits.restype = i
     lib.b3d_hand_groups_scratch.argtypes = [i, i]

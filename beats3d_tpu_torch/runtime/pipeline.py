@@ -8,9 +8,11 @@ One depth frame in, fingertip heights out:
       -> 1/8 mipmap shrink -> connected components ->
          left/right hand selection -> 1-pixel grow, one
          launch of the grouping kernel                     (ops.components)
-      -> per-hand crop and stencil (the left hand
-         mirrored, so the right-hand model applies)        (ops.points)
+      -> per-hand crop, stencil and incoherence guard (the
+         left hand mirrored, so the right-hand model
+         applies), one hand-image launch          (ops.hand_images_cuda)
       -> layered decision forest, both hands in one launch (kernel K1)
+      -> labels placed on the screen, unmirrored  (ops.hand_images_cuda)
       -> per-class mean-shift modes, one launch of the
          mean-shift kernel                                 (ops.meanshift_cuda)
       -> fingertip heights above the plane from the RAW depth
@@ -28,8 +30,9 @@ selected.  ``vmap`` becomes an explicit batch dimension.
 
 Depth is carried as int32 inside (PyTorch's uint16 support is thin); the
 outputs keep the JAX program's dtypes.  The backend follows the model's
-device: ``"cuda"`` (kernels K1, K2, the grouping kernel and the mean-shift
-kernel) for a CUDA model, ``"torch"`` (their plain versions) for a CPU model.
+device: ``"cuda"`` (kernels K1, K2, the grouping kernel, the hand-image and
+label kernels and the mean-shift kernel) for a CUDA model, ``"torch"`` (their
+plain versions) for a CPU model.
 """
 
 from __future__ import annotations
@@ -40,16 +43,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.layered import LayeredDecisionForest, run_layered
-from ..ops import (components, forest_eval_cuda, meanshift_cuda, points,
-                   preproc_cuda)
+from ..ops import (components, forest_eval_cuda, hand_images_cuda,
+                   meanshift_cuda, preproc_cuda)
 from ..utils.profiler import TIMER, StageClock
 from . import graph_cond
 from .graph_cond import cond
 
-MAX_UINT16 = 65535
 # JAX's pipeline guards only where its TPU path runs the Pallas kernel, which
 # takes a model of at most 128 condition rows (its
 # LayeredDecisionForest.pallas_supported); a wider model runs the XLA
@@ -170,60 +171,6 @@ def _front_rest(depth1, group_min_size, cfg):
                                         group_min_size)
 
 
-def _full_stencils(depth1, grown, cfg):
-    """Full-resolution per-hand stack (..., 2, H, W): right, mirrored left."""
-    lvl = cfg.depth_mm_level
-    d_right = points.stencil_depth_image_by_group(grown, depth1, lvl, 1)
-    d_left = points.flip_x(
-        points.stencil_depth_image_by_group(grown, depth1, lvl, 2))
-    return points.convert_0s_to_maxuint(torch.stack([d_right, d_left], dim=-3))
-
-
-def _stencil_crops(depth1, grown, oys, oxs, cfg, h, w):
-    """Per-hand stencilled (B, 2, crop_h, crop_w) crops cut straight from
-    depth1 (B, H, W) / grown (B, Hs, Ws) at the device-side origins
-    ``oys``, ``oxs`` (B, 2); the left hand's (mirrored-space) origin maps to
-    an unmirrored window flipped after stencilling.  Bit-identical to
-    cropping _full_stencils."""
-    f = 1 << cfg.depth_mm_level
-    ch, cw = cfg.crop_h, cfg.crop_w
-    out = []
-    for hand, ox in ((0, oxs[:, 0]), (1, w - cw - oxs[:, 1])):
-        oy = oys[:, hand]
-        d = points.crop(depth1, oy, ox, ch, cw)
-        g = points.crop(grown, oy // f, ox // f, ch // f, cw // f)
-        s = points.stencil_depth_image_by_group(g, d, cfg.depth_mm_level,
-                                                hand + 1)
-        out.append(points.flip_x(s) if hand else s)
-    return points.convert_0s_to_maxuint(torch.stack(out, dim=1))
-
-
-def _spread_tiles(depth_imgs, r, cfg):
-    """Per-(image, 8x128 label tile) (occupied, over-spread) masks: a tile is
-    over-spread when its valid-depth range exceeds cfg.guard_spread."""
-    n = depth_imgs.shape[0]
-    c = depth_imgs[:, ::r, ::r].to(torch.int32)
-    hl, wl = c.shape[1], c.shape[2]
-    hp = ((hl + 7) // 8) * 8
-    wp = ((wl + 127) // 128) * 128
-    t = F.pad(c, (0, wp - wl, 0, hp - hl)).reshape(n, hp // 8, 8, wp // 128, 128)
-    valid = (t > 0) & (t < MAX_UINT16)
-    tmin = torch.where(valid, t, 1 << 20).amin(dim=(2, 4))
-    tmax = torch.where(valid, t, -1).amax(dim=(2, 4))
-    occupied = tmax >= 0
-    spread = occupied & ((tmax - tmin) > cfg.guard_spread)
-    return occupied, spread
-
-
-def _incoherent_images(depth_imgs, r, cfg):
-    """Per-image guard flags: (N,) bool, True for images whose own
-    over-spread tile fraction exceeds cfg.guard_tile_frac."""
-    occupied, spread = _spread_tiles(depth_imgs, r, cfg)
-    n_occ = torch.clamp(occupied.sum(dim=(1, 2)), min=1).to(torch.float32)
-    frac = spread.sum(dim=(1, 2)).to(torch.float32) / n_occ
-    return frac > cfg.guard_tile_frac
-
-
 def _crop_origins(grown, cfg, h, w):
     """Per-frame, per-hand crop origins around the grown group bbox (the left
     hand's mirrored) and the exceeds-crop flag, on the device (JAX's
@@ -268,31 +215,20 @@ def guards(cfg: PipelineConfig, model: LayeredDecisionForest) -> bool:
             and model.conditions_np.shape[0] <= GUARD_CONDITION_ROWS)
 
 
-def _eval_layers(depth_imgs, pipe, cfg, scale):
-    """Layered eval of an (N, H, W) hand stack with the incoherence guard
-    where ``pipe.guarded``.  Returns (labels (N, H//r, W//r) int32,
-    guard_muted (N,) bool)."""
+def _hand_eval(pipe, depth1, grown, **kw):
+    """The hand images of depth1 (B, H, W) / grown (B, Hs, Ws), cut at the
+    crop origins or whole (``kw``: :func:`hand_images_cuda.hand_images`'
+    window, origins, frames, mute, keep), with the incoherence guard where
+    ``pipe.guarded``, then the layered eval.  Returns (labels (2B', ch//r,
+    cw//r) int32, guard_muted (2B',) bool)."""
+    cfg = pipe.cfg
     r = cfg.labels_reduce
-    noflags = torch.zeros(depth_imgs.shape[0], dtype=torch.bool,
-                          device=depth_imgs.device)
-
-    def fast(d):
-        return run_layered(d, pipe.model, labels_reduce=r, scale_factor=scale)
-
-    if not pipe.guarded:
-        return fast(depth_imgs), noflags
-    flags = _incoherent_images(depth_imgs, r, cfg)
-    safe = torch.where(flags[:, None, None], 0, depth_imgs)
-    return fast(safe), flags
-
-
-def _place(crops, oys, oxs, r, hl, wl):
-    """(B, 2, ch/r, cw/r) crop label images on (B, 2, Hl, Wl) canvases of
-    65535 at the crop origins (the left hand's in mirrored space)."""
-    b, _, chl, cwl = crops.shape
-    return points.place(MAX_UINT16, crops.reshape(2 * b, chl, cwl),
-                        (oys // r).reshape(-1), (oxs // r).reshape(-1),
-                        hl, wl).reshape(b, 2, hl, wl)
+    guard = ((r, cfg.guard_spread, cfg.guard_tile_frac) if pipe.guarded
+             else None)
+    imgs, flags = hand_images_cuda.hand_images(
+        depth1, grown, cfg.depth_mm_level, guard=guard, **kw)
+    return run_layered(imgs, pipe.model, labels_reduce=r,
+                       scale_factor=_scale(depth1.shape[-1], cfg)), flags
 
 
 def _screen_means(m, oys, oxs, r, wl):
@@ -302,12 +238,6 @@ def _screen_means(m, oys, oxs, r, wl):
     sy = (oys // r).to(torch.float32)[..., None] + m[..., 1]
     sx = torch.stack([sx[:, 0], (wl - 1) - sx[:, 1]], dim=1)
     return torch.stack([sx, sy], dim=-1)
-
-
-def _unmirror(lab):
-    """(..., 2, Hl, Wl) per-hand labels -> screen frame (left hand flipped)."""
-    return torch.stack([lab[..., 0, :, :], points.flip_x(lab[..., 1, :, :])],
-                       dim=-3)
 
 
 def _run_ms(labels, pipe):
@@ -333,23 +263,20 @@ def _front(pipe, raw_depth, plane_mat):
     return depth1, grown, g_info, groups_small
 
 
-def _full_path(pipe, depth1, grown, keep=None):
-    """Full-frame eval of (B, H, W) frames: labels (B, 2, Hl, Wl), means
-    (B, 2, C, 2), guard_muted (B, 2).  ``keep`` (B,) bool: the frames whose
-    results will be used; the others' stencils are zeroed, so K1 skips
-    their pixels (their results are garbage the caller drops)."""
+def _full_path(pipe, depth1, grown, keep=None, frames=None):
+    """Full-frame eval of (B, H, W) frames, or of the frames ``frames``
+    (B',) picks: labels (B', 2, Hl, Wl), means (B', 2, C, 2), guard_muted
+    (B', 2).  ``keep`` (B',) bool: the frames whose results will be used;
+    the others' stencils are zeroed, so K1 skips their pixels (their
+    results are garbage the caller drops)."""
     stage("eval")
-    cfg = pipe.cfg
-    b, h, w = depth1.shape
-    r = cfg.labels_reduce
-    hand = _full_stencils(depth1, grown, cfg)
-    if keep is not None:
-        hand = torch.where(keep[:, None, None, None], hand, 0)
-    lab, gf = _eval_layers(hand.reshape(2 * b, h, w), pipe, cfg,
-                           _scale(w, cfg))
-    labels = _unmirror(lab.reshape(b, 2, h // r, w // r))
+    h, w = depth1.shape[1:]
+    r = pipe.cfg.labels_reduce
+    lab, gf = _hand_eval(pipe, depth1, grown, frames=frames, keep=keep)
+    labels = hand_images_cuda.place_labels(
+        lab.reshape(-1, 2, h // r, w // r), r)
     stage("meanshift")
-    return labels, _run_ms(labels, pipe), gf.reshape(b, 2)
+    return labels, _run_ms(labels, pipe), gf.reshape(-1, 2)
 
 
 def _crop_path(pipe, depth1, grown, oys, oxs, too_big=None):
@@ -362,13 +289,11 @@ def _crop_path(pipe, depth1, grown, oys, oxs, too_big=None):
     b, h, w = depth1.shape
     r = cfg.labels_reduce
     ch, cw = cfg.crop_h, cfg.crop_w
-    crops = _stencil_crops(depth1, grown, oys, oxs, cfg, h, w)
-    if too_big is not None:
-        crops = torch.where(too_big[:, None, None, None], 0, crops)
-    lc, gf = _eval_layers(crops.reshape(2 * b, ch, cw), pipe, cfg,
-                          _scale(w, cfg))
+    lc, gf = _hand_eval(pipe, depth1, grown, window=(ch, cw),
+                        origins=(oys, oxs), mute=too_big)
     lc = lc.reshape(b, 2, ch // r, cw // r)
-    labels = _unmirror(_place(lc, oys, oxs, r, h // r, w // r))
+    labels = hand_images_cuda.place_labels(lc, r, origins=(oys, oxs),
+                                           canvas=(h // r, w // r))
     stage("meanshift")
     means = _screen_means(_run_ms(lc, pipe), oys, oxs, r, w // r)
     return labels, means, gf.reshape(b, 2)
@@ -476,7 +401,7 @@ def frame_step_batched(pipe: "FramePipeline", raw_depth, plane_mat):
             upd = too_big[idx]
 
             def rescue():
-                return _full_path(pipe, depth1[idx], grown[idx], keep=upd)
+                return _full_path(pipe, depth1, grown, keep=upd, frames=idx)
 
             def none_oversized():
                 # placeholders the all-false upd mask drops
@@ -508,7 +433,9 @@ FRAME_KERNELS = (forest_eval_cuda.evaluate_layered_cuda,
                  preproc_cuda.plane_band_gauss_cuda,
                  components.hand_groups_grown,
                  components.hand_groups_multiblock,
-                 meanshift_cuda.mean_shift_cuda)
+                 meanshift_cuda.mean_shift_cuda,
+                 hand_images_cuda.hand_images,
+                 hand_images_cuda.place_labels)
 
 
 class FrameGraph:

@@ -63,8 +63,10 @@ import torch
 #                   evaluate_layered_wide_kernel) is "layered" already
 #   preproc         K2 (plane_band_gauss_kernel) is "plane_band" already
 #   components      hand_groups_kernel, hand_groups_mb_* are "hand_group"
-#   crop_scatter  + ATen's gathers and index copies (points.crop / place:
-#                   vectorized_gather_kernel, gpu_index_kernel,
+#   crop_scatter  + the hand-image and label kernels (csrc/hand_images.cu:
+#                   stencil_hand_images_kernel, stencil_guard_kernel,
+#                   place_crop_labels_kernel) and ATen's gathers and index
+#                   copies (vectorized_gather_kernel, gpu_index_kernel,
 #                   index_copy_kernel_impl; _scatter_gather_* is "scatter")
 #   reduce_misc     ATen's reductions are reduce_kernel (sum, max, min, or,
 #                   argmax), its comparisons CompareEq/compare_scalar

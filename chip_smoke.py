@@ -9,8 +9,10 @@ plain PyTorch version at its path's shapes: K2 bit for bit at B = 1 and
 the golden frames and the pipeline's live (2) and batched (32) hand
 crops, the mean-shift kernel within 1e-4 px of its plain version on K1's
 labels of the live (2) and batched (32) crops and the rescue's 4 full
-frames (meanshift_vs_plain), the grouping kernel bit for bit in its
-labels-only, hand-groups and stage modes on the 16 scenes' K2 output
+frames (meanshift_vs_plain), the hand-image and label kernels bit for bit
+on the live frame's and the batched call's crops, the rescue's full frames
+and 16 full frames (hand_images_vs_plain), the grouping kernel bit for bit
+in its labels-only, hand-groups and stage modes on the 16 scenes' K2 output
 (live and batched), the oversized-hand frame, the serpentine and a
 checkerboard.  Past the widths the kernels once refused: B1 (labels and
 single-tree semantics) and its pdf-sum mode on the golden frames with
@@ -200,13 +202,14 @@ from beats3d_tpu_torch import release  # noqa: E402
 from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
 from beats3d_tpu_torch.models.forest import (  # noqa: E402
     DecisionForest, DecisionTree, PackedForest)
+from beats3d_tpu_torch.models.layered import run_layered  # noqa: E402
 from beats3d_tpu_torch.native import grouping  # noqa: E402
 from beats3d_tpu_torch.parallel import jobs, launch  # noqa: E402
 from beats3d_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from beats3d_tpu_torch.ops import (  # noqa: E402
-    components, cuda_lib, forest_eval, forest_eval_cuda, meanshift,
-    meanshift_cuda, points, posefit, preproc_cuda, stereo, train_features,
-    train_features_cuda, warp,
+    components, cuda_lib, forest_eval, forest_eval_cuda, hand_images_cuda,
+    meanshift, meanshift_cuda, points, posefit, preproc_cuda, stereo,
+    train_features, train_features_cuda, warp,
 )
 from beats3d_tpu_torch.probes import __main__ as probes_main  # noqa: E402
 from beats3d_tpu_torch.probes import tiles as probe_tiles  # noqa: E402
@@ -235,15 +238,21 @@ B1_PDF = forest_eval_cuda.forest_pdf_sum_cuda
 GK = components.hand_groups_grown
 MB = components.hand_groups_multiblock
 MS = meanshift_cuda.mean_shift_cuda
+HI = hand_images_cuda.hand_images
+PL = hand_images_cuda.place_labels
 # the frame kernels' names in a profiler trace: K1, K2, the grouping kernel,
-# the mean-shift kernel
+# the mean-shift kernel, the hand-image kernel (under the guard its second
+# kernel, stencil_guard_kernel, follows each launch) and the label kernel
 FRAME_KERNEL_NAMES = ("evaluate_layered_kernel", "plane_band_gauss_kernel",
-                      "hand_groups_kernel", "mean_shift_kernel")
-FRAME_KERNEL_KEYS = ("k1", "k2", "grouping", "meanshift")
+                      "hand_groups_kernel", "mean_shift_kernel",
+                      "stencil_hand_images_kernel", "place_crop_labels_kernel")
+FRAME_KERNEL_KEYS = ("k1", "k2", "grouping", "meanshift", "hand_images",
+                     "labels")
+FRAME_WRAPPERS = (K1, K2, GK, MS, HI, PL)
 # (key, wrapper, traced name) of the frame kernels; at depth_mm_level 1 the
 # grouping stage is the multi-block path (its first kernel is traced, once
 # per call)
-FRAME_KERNELS = tuple(zip(FRAME_KERNEL_KEYS, (K1, K2, GK, MS),
+FRAME_KERNELS = tuple(zip(FRAME_KERNEL_KEYS, FRAME_WRAPPERS,
                           FRAME_KERNEL_NAMES))
 LEVEL1_KERNELS = FRAME_KERNELS[:2] + (
     ("grouping_multiblock", MB, "hand_groups_mb_local"),) + FRAME_KERNELS[3:]
@@ -255,7 +264,9 @@ PROFILED_FRAMES, PROFILED_BATCHES = 32, 5
 DEVTIME_WINDOWS, DEVTIME_ITERS = (32, 6), (10, 6)
 # the stage of each frame kernel's traced name (utils.devtime.STAGES)
 FRAME_KERNEL_STAGES = {"k1": "eval_kernel", "k2": "preproc",
-                       "grouping": "components", "meanshift": "meanshift"}
+                       "grouping": "components", "meanshift": "meanshift",
+                       "hand_images": "crop_scatter",
+                       "labels": "crop_scatter"}
 BATCH = kb.BATCH
 MS_TOL = 1e-4        # px: the mean-shift kernel sums in another order
 CLASSES = 7          # background, palm, five fingers
@@ -477,6 +488,93 @@ def phase_meanshift(inp):
     return res
 
 
+def phase_hand_images(inp):
+    """The hand-image and label kernels against their plain versions at the
+    main path's shapes, bit for bit (images, guard flags, labels, and a
+    second launch equal to the first): the live frame's crops (frame 0),
+    the batched call's crops of the 16 scenes (too_big muting), the
+    rescue's full body on 2 of them (a frame index, one pair kept) and the
+    full body on all 16, each under the pipeline's guard; the labels from
+    K1 on each case's images.  Device time from a CUDA graph; the plain
+    versions' (the ATen chain the frame graph held before) launched from
+    the host and from a CUDA graph; the bound from the bytes: the images
+    written once, their stencilled depth pixels and the windows' groups
+    read once; K1's labels read once and the canvas written once."""
+    pipe, cfg = inp.pipe, inp.pipe.cfg
+    h, w = inp.frames.shape[1:]
+    r, level = cfg.labels_reduce, cfg.depth_mm_level
+    depth1, grown, _, _ = pl._front(pipe, inp.frames, inp.plane)
+    oys, oxs, too_big = pl._crop_origins(grown, cfg, h, w)
+    guard = ((r, cfg.guard_spread, cfg.guard_tile_frac) if pipe.guarded
+             else None)
+    dev = depth1.device
+    window = (cfg.crop_h, cfg.crop_w)
+    cases = {
+        "live": (depth1[:1], grown[:1],
+                 dict(window=window, origins=(oys[:1], oxs[:1]))),
+        "batch": (depth1, grown,
+                  dict(window=window, origins=(oys, oxs), mute=too_big)),
+        "rescue": (depth1, grown, dict(
+            frames=torch.tensor([1, 4], device=dev),
+            keep=torch.tensor([True, False], device=dev))),
+        "full": (depth1, grown, {}),
+    }
+    res = {}
+    for name, (d, g, kw) in cases.items():
+        def images():
+            return HI(d, g, level, guard=guard, **kw)
+
+        def images_plain():
+            return hand_images_cuda.hand_images_plain(d, g, level,
+                                                      guard=guard, **kw)
+
+        got, again, want = images(), images(), images_plain()
+        imgs = got[0]
+        pairs = imgs.shape[0] // 2
+        lab = run_layered(imgs, pipe.model, labels_reduce=r,
+                          scale_factor=pl._scale(w, cfg)).reshape(
+            pairs, 2, imgs.shape[1] // r, imgs.shape[2] // r)
+        pkw = (dict(origins=kw["origins"], canvas=(h // r, w // r))
+               if "origins" in kw else {})
+
+        def labels():
+            return PL(lab, r, **pkw)
+
+        def labels_plain():
+            return hand_images_cuda.place_labels_plain(lab, r, **pkw)
+
+        placed, placed_again, placed_want = (labels(), labels(),
+                                             labels_plain())
+        torch.cuda.synchronize()
+        f = 1 << level
+        stencilled = int(((imgs > 0) & (imgs < 65535)).sum())
+        image_bytes = 4 * (imgs.numel() + stencilled
+                           + imgs.shape[0] * (imgs.shape[1] // f)
+                           * (imgs.shape[2] // f))
+        for part, (a, b, c, fn, plain_fn, nbytes) in {
+                "images": (got, again, want, images, images_plain,
+                           image_bytes),
+                "labels": ((placed,), (placed_again,), (placed_want,),
+                           labels, labels_plain,
+                           4 * (lab.numel() + placed.numel()))}.items():
+            bound_ms, bound_by = kb.bound(nbytes, 0)
+            r_ = dict(
+                max_abs_err=max(float((x.long() - y.long()).abs().max())
+                                for x, y in zip(a, c)),
+                repeat_equal=all(torch.equal(x, y) for x, y in zip(a, b)),
+                ms=graph_ms(fn), plain_ms=host_ms(plain_fn),
+                plain_graph_ms=graph_ms(plain_fn, iters=5),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=list(a[0].shape))
+            if part == "images":
+                r_.update(muted=int(got[1].sum()), stencilled=stencilled)
+            res[f"{part}/{name}"] = r_
+            say("hand_images_vs_plain", case=f"{part}/{name}", **r_)
+            if r_["max_abs_err"] != 0 or not r_["repeat_equal"]:
+                raise AssertionError(f"{part} on {name}: {r_}")
+    return res
+
+
 def kernel_device_ms(prof, needle):
     """(launches, mean device ms per launch) of the kernels whose name holds
     ``needle`` in a torch.profiler run."""
@@ -519,9 +617,15 @@ def device_profile(prof, calls, wall_ms, ranges=()):
 
 def counts():
     """The launch counts of the frame's kernels (K1, K2, grouping, mean
-    shift): their wrappers' calls, which a CUDA graph's warm-up and capture
-    make and its replays do not."""
-    return tuple(k.launches for k in (K1, K2, GK, MS))
+    shift, hand images, labels): their wrappers' calls, which a CUDA
+    graph's warm-up and capture make and its replays do not."""
+    return tuple(k.launches for k in FRAME_WRAPPERS)
+
+
+def reset_counts():
+    """Zero the frame kernels' launch counts."""
+    for k in FRAME_WRAPPERS:
+        k.launches = 0
 
 
 def body_launches(frame_graph, kernel):
@@ -532,10 +636,11 @@ def body_launches(frame_graph, kernel):
 
 
 def captured_launches(pipe):
-    """The (K1, K2, grouping, mean shift) launches ``pipe``'s graphs made
-    through the wrappers: each graph's warm-up and its capture."""
+    """The launches of the frame kernels (as :func:`counts`) that ``pipe``'s
+    graphs made through the wrappers: each graph's warm-up and its
+    capture."""
     return tuple(sum(2 * body_launches(g, k) for g in pipe.graphs.values())
-                 for k in (K1, K2, GK, MS))
+                 for k in FRAME_WRAPPERS)
 
 
 def body_replays(pipe):
@@ -733,7 +838,8 @@ def phase_main_path(inp, smi):
                 + 2 * (1 + PROFILED_FRAMES))
     synth = [f for f, _ in zip(source.frames(), range(n_frames))]
     it = iter(synth)
-    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
+    reset_counts()
+    MB.launches = 0
     for _ in range(app.cfg.warmup_frames):
         app.tick(next(it))
     t_cal = time.perf_counter()
@@ -818,7 +924,9 @@ def phase_main_path(inp, smi):
         fps_batched=BATCH * 1e3 / ms_batch["median"],
         k1_launches_traced=traced[0], k2_launches_traced=traced[1],
         grouping_launches_traced=traced[2],
-        meanshift_launches_traced=traced[3], k1_by_branch=k1_by_branch,
+        meanshift_launches_traced=traced[3],
+        hand_images_launches_traced=traced[4],
+        labels_launches_traced=traced[5], k1_by_branch=k1_by_branch,
         wrapper_launches=dict(zip(FRAME_KERNEL_KEYS, wrapper)),
         profiled=windows, graphs=graph_table(app.pipeline),
         hands_per_frame=hands.tolist(), valid_tips_batch=n_valid,
@@ -1934,7 +2042,7 @@ def phase_serving_path(inp, smi):
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
                    log=lambda *a: None)
     it = source.frames()
-    K1.launches = K2.launches = GK.launches = MS.launches = 0
+    reset_counts()
     for _ in range(app.cfg.warmup_frames + 1):
         app.tick(next(it))
     outs, secs = timed_ticks(app, it, SERVING_TICKS)
@@ -2084,7 +2192,7 @@ def phase_keskin_path(inp, smi):
     app = BeatsApp(model, source, midi=Midi(), cfg=AppConfig(),
                    log=lambda *a: None)
     pipe, it = app.pipeline, source.frames()
-    K1.launches = K2.launches = GK.launches = MS.launches = 0
+    reset_counts()
     for _ in range(app.cfg.warmup_frames + 1):
         app.tick(next(it))
     ob = pipe.batch(frames, plane)
@@ -2399,7 +2507,7 @@ def phase_bag_path(inp, smi):
             return BeatsApp(inp.model, source, midi=Midi(), cfg=AppConfig(),
                             log=lambda *a: None)
 
-        K1.launches = K2.launches = GK.launches = MS.launches = 0
+        reset_counts()
         app = app_on(src)
         outs, walls, profiled_ticks = bag_drive(app, replay, BAG_PROFILED)
         launches = counts()
@@ -2880,7 +2988,8 @@ def phase_wide_pipeline(inp, smi):
                             inp.intrin)
     host = pl.FramePipeline(wide_model("cpu", 129, WIDE_PIPE_LEVELS),
                             inp.intrin)
-    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
+    reset_counts()
+    MB.launches = 0
     live = [card(inp.frames[i % BATCH], inp.plane) for i in range(WIDE_TICKS)]
     batch = card.batch(inp.frames, inp.plane)
     torch.cuda.synchronize()
@@ -3024,7 +3133,8 @@ def phase_components_large(inp, smi):
         group_min_size=app.cfg.group_min_size)
     frames = iter([f for f, _ in zip(
         source.frames(), range(app.cfg.warmup_frames + 2 + LEVEL1_TICKS))])
-    K1.launches = K2.launches = GK.launches = MB.launches = MS.launches = 0
+    reset_counts()
+    MB.launches = 0
     for _ in range(app.cfg.warmup_frames + 1):     # warm-up, plane, capture
         app.tick(next(frames))
     seen = []
@@ -3267,6 +3377,7 @@ def main():
     k2 = run("k2_vs_plain", phase_preproc, inp)
     k1 = run("k1_vs_plain", phase_layered, inp)
     ms = run("meanshift_vs_plain", phase_meanshift, inp)
+    hi = run("hand_images_vs_plain", phase_hand_images, inp)
     uf = run("components_vs_plain", phase_components, inp, smi)
     wide = run("wide_forests_vs_plain", phase_wide_forests, inp, dev, smi)
     run("wide_pipeline", phase_wide_pipeline, inp, smi)
@@ -3308,9 +3419,10 @@ def main():
                         train_forest_d16)
     run("mesh_nccl", phase_mesh_nccl, inp, dev)
     run("mesh_dryrun", dryrun_multichip, 4, "cuda")
-    # K1, K2, the grouping and the mean-shift kernel run inside CUDA graphs
-    # on the main path: their launches are the kernel records traced in
-    # main_path's profiled windows (each held there to the graphs' replays)
+    # K1, K2, the grouping, mean-shift, hand-image and label kernels run
+    # inside CUDA graphs on the main path: their launches are the kernel
+    # records traced in main_path's profiled windows (each held there to
+    # the graphs' replays)
     def worst(res, prefix):
         return max(v["max_abs_err"] for k, v in res.items()
                    if k.startswith(prefix))
@@ -3332,6 +3444,17 @@ def main():
               "beats3d_tpu/ops/meanshift.py:mean_shift (XLA operations; not "
               "a pallas_call)", launches[3], dict(ms["batch"], max_abs_err=max(
                   v["max_abs_err"] for v in ms.values()))),
+        entry("hand_images", "hand_images.cu",
+              "beats3d_tpu/runtime/pipeline.py:_stencil_crops, "
+              "_full_stencils and the guard (_spread_tiles, "
+              "_incoherent_images) (XLA operations; not a pallas_call)",
+              launches[4],
+              dict(hi["images/batch"], max_abs_err=worst(hi, "images/"))),
+        entry("place_labels", "hand_images.cu",
+              "beats3d_tpu/runtime/pipeline.py: scatter_mm of the crop "
+              "labels and the unmirroring (XLA operations; not a "
+              "pallas_call)", launches[5],
+              dict(hi["labels/batch"], max_abs_err=worst(hi, "labels/"))),
         entry("evaluate_forest_cuda", "forest_eval.cu",
               "beats3d_tpu/ops/forest_eval_pallas.py:1940", train_launches[1],
               dict(b1["golden_r1"], max_abs_err=max(

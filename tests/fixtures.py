@@ -110,3 +110,86 @@ def layered_cfg_fixture(tmpdir, rng, num_classes_coarse=3, num_classes_fine=4):
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
+
+
+# The hand-image and label cases (ops/hand_images_cuda.py): frames H x W,
+# crops CH x CW; per variant (pairs' frames B, depth_mm_level, labels_reduce,
+# crop origins, zeroing, the frame index that picks each pair's frame).
+HAND_H, HAND_W, HAND_CH, HAND_CW = 48, 80, 32, 48
+HAND_GUARD_SPREAD, HAND_GUARD_FRAC = 1500, 0.25
+HAND_VARIANTS = {
+    "b1_l3_r2_origin0": (1, 3, 2, "zero", False, None),
+    "b1_l1_r1_edge": (1, 1, 1, "edge", False, None),
+    "b16_l3_r1_edge_zeroed": (16, 3, 1, "edge", True, None),
+    "b16_l1_r2_past_zeroed_frames": (16, 1, 2, "past", True, (2, 2, 7, 0)),
+}
+
+
+def hand_image_case(rng, body, guard, variant):
+    """Inputs of ``hand_images`` and ``place_labels`` for one case, as numpy
+    arrays and keywords.  body "crop" or "full"; guard "off", "flagged"
+    (the even frames' depth is noise over the full range, so their
+    unzeroed hands are flagged) or "clean" (every frame a smooth surface,
+    nothing flagged).  Origins "zero" (both hands at 0), "edge" (the right
+    hand at the frame's far corner, the left at mirrored 0, that is, the
+    far right edge of the unmirrored frame) or "past" (a 2**level step
+    past the far corner: windows partly outside the frame, the left hand's
+    unmirrored origin negative).  Zeroing: odd pairs are muted (crop) or
+    not kept (full).  Returns dict(depth1 (B, H, W), grown (B, Hs, Ws),
+    level, r, kw (hand_images' keywords, numpy), labels (pairs, 2, lh, lw),
+    place_kw (place_labels' keywords, numpy))."""
+    b, level, r, origin, zeroed, frames = HAND_VARIANTS[variant]
+    h, w, ch, cw, f = HAND_H, HAND_W, HAND_CH, HAND_CW, 1 << level
+    yy, xx = np.mgrid[0:h, 0:w]
+    depth1 = np.broadcast_to(2000 + 3 * yy + xx, (b, h, w)).astype(np.int32)
+    depth1 = np.where(rng.random((b, h, w)) < 0.1, 0, depth1)
+    depth1 = np.where(rng.random((b, h, w)) < 0.02, MAX_UINT16, depth1)
+    if guard == "flagged":
+        depth1[0::2] = rng.integers(1, 60000, depth1[0::2].shape)
+    hs, ws = -(-h // f), -(-w // f)
+    grown = rng.integers(0, 3, (b, hs, ws)).astype(np.int32)
+    pairs = b if frames is None else len(frames)
+    kw = {}
+    if frames is not None:
+        kw["frames"] = np.asarray(frames, np.int64)
+    if zeroed:
+        odd = np.arange(pairs) % 2 == 1
+        kw["mute" if body == "crop" else "keep"] = (
+            odd if body == "crop" else ~odd)
+    if guard != "off":
+        kw["guard"] = (r, HAND_GUARD_SPREAD, HAND_GUARD_FRAC)
+    place_kw = {}
+    if body == "crop":
+        far_y, far_x = h - ch, w - cw
+        oys, oxs = {"zero": ((0, 0), (0, 0)),
+                    "edge": ((far_y, 0), (far_x, 0)),
+                    "past": ((far_y + f, far_y + f), (far_x + f, far_x + f)),
+                    }[origin]
+        oys = np.tile(np.asarray(oys, np.int32), (pairs, 1))
+        oxs = np.tile(np.asarray(oxs, np.int32), (pairs, 1))
+        kw.update(window=(ch, cw), origins=(oys, oxs))
+        place_kw.update(origins=(oys, oxs), canvas=(h // r, w // r))
+        lh, lw = ch // r, cw // r
+    else:
+        lh, lw = h // r, w // r
+    labels = rng.integers(1, 8, (pairs, 2, lh, lw)).astype(np.int32)
+    labels = np.where(rng.random(labels.shape) < 0.3, MAX_UINT16, labels)
+    return dict(depth1=depth1, grown=grown, level=level, r=r, kw=kw,
+                labels=labels.astype(np.int32), place_kw=place_kw)
+
+
+def as_tensors(kw, device=None):
+    """A hand-image case's numpy keywords (``kw`` or ``place_kw``) as
+    tensors on ``device``: arrays and the origins pair converted, the rest
+    as they are."""
+    import torch
+
+    out = {}
+    for key, v in kw.items():
+        if key == "origins":
+            out[key] = tuple(torch.as_tensor(o, device=device) for o in v)
+        elif isinstance(v, np.ndarray):
+            out[key] = torch.as_tensor(v, device=device)
+        else:
+            out[key] = v
+    return out

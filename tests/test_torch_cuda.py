@@ -1074,9 +1074,9 @@ def test_graph_capture_under_sync_debug_error(cuda_dev, bench):
 @pytest.mark.cuda
 def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     """A FrameGraph's warm-up and capture go through the kernel wrappers
-    (K2 and the grouping kernel once outside the cond, K1 and mean shift
-    once in each of its bodies); its replays go through none, so they move
-    no launch count."""
+    (K2 and the grouping kernel once outside the cond; K1, mean shift, the
+    hand-image and the label kernel once in each of its bodies); its
+    replays go through none, so they move no launch count."""
     from beats3d_tpu_torch.runtime import pipeline as pl
 
     pipe = pl.FramePipeline(bench.model, bench.intrin)
@@ -1085,8 +1085,8 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     captured = [k.launches for k in pl.FRAME_KERNELS]
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
     assert {b: list(n.values()) for b, n in graph.launches.items()} == {
-        "": [0, 1, 1, 0, 0], "full": [1, 0, 0, 0, 1],
-        "crop": [1, 0, 0, 0, 1]}
+        "": [0, 1, 1, 0, 0, 0, 0], "full": [1, 0, 0, 0, 1, 1, 1],
+        "crop": [1, 0, 0, 0, 1, 1, 1]}
     assert [a - b for a, b in zip(captured, before)] == [
         2 * sum(n[k.__name__] for n in graph.launches.values())
         for k in pl.FRAME_KERNELS]
@@ -1095,6 +1095,143 @@ def test_graph_replay_moves_no_launch_count(cuda_dev, bench):
     torch.cuda.synchronize()
     assert [k.launches for k in pl.FRAME_KERNELS] == captured
     assert graph.replays == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(fixtures.HAND_VARIANTS))
+@pytest.mark.parametrize("guard", ["off", "flagged", "clean"])
+@pytest.mark.parametrize("body", ["crop", "full"])
+def test_hand_image_kernels_match_plain(cuda_dev, body, guard, variant):
+    """The hand-image and label kernels against their plain versions bit
+    for bit, one launch of each wrapper, on the cases of
+    tests/test_torch_hand_images.py (where the plain versions meet a numpy
+    reference): crop and whole frame, one frame and 16, levels 1 and 3,
+    labels_reduce 1 and 2, origins at 0, at the far edge and past it,
+    zeroed pairs, the guard off, flagging and clean, the rescue's frame
+    index."""
+    from beats3d_tpu_torch.ops import hand_images_cuda as hi
+
+    case = fixtures.hand_image_case(np.random.default_rng(7), body, guard,
+                                    variant)
+    depth1 = torch.as_tensor(case["depth1"], device=cuda_dev)
+    grown = torch.as_tensor(case["grown"], device=cuda_dev)
+    kw = fixtures.as_tensors(case["kw"], cuda_dev)
+    labels = torch.as_tensor(case["labels"], device=cuda_dev)
+    pkw = fixtures.as_tensors(case["place_kw"], cuda_dev)
+    before = (hi.hand_images.launches, hi.place_labels.launches)
+    got = hi.hand_images(depth1, grown, case["level"], **kw)
+    placed = hi.place_labels(labels, case["r"], **pkw)
+    want = hi.hand_images_plain(depth1, grown, case["level"], **kw)
+    want_placed = hi.place_labels_plain(labels, case["r"], **pkw)
+    torch.cuda.synchronize()
+    assert (hi.hand_images.launches, hi.place_labels.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got + (placed,), want + (want_placed,)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert bool(want[1].any()) == (guard == "flagged")
+
+
+@pytest.mark.cuda
+def test_hand_image_kernels_reject_bad_input(cuda_dev):
+    from beats3d_tpu_torch.ops import hand_images_cuda as hi
+
+    depth1 = torch.zeros((2, 48, 80), dtype=torch.int32, device=cuda_dev)
+    grown = torch.zeros((2, 6, 10), dtype=torch.int32, device=cuda_dev)
+    origins = (torch.zeros((2, 2), dtype=torch.int32, device=cuda_dev),) * 2
+    with pytest.raises(ValueError):
+        hi.hand_images(depth1.to(torch.int64), grown, 3)
+    with pytest.raises(ValueError):            # groups too small
+        hi.hand_images(depth1, grown[:, :5], 3)
+    with pytest.raises(ValueError):            # not a multiple of 2**3
+        hi.hand_images(depth1, grown, 3, window=(32, 44), origins=origins)
+    with pytest.raises(ValueError):
+        hi.hand_images(depth1, grown, 3, window=(32, 48),
+                       origins=(origins[0].to(torch.int64), origins[1]))
+    with pytest.raises(ValueError):
+        hi.place_labels(torch.zeros((2, 2, 8, 8), dtype=torch.int64,
+                                    device=cuda_dev), 2)
+
+
+@pytest.mark.cuda
+def test_batched_replay_matches_the_plain_program(cuda_dev, bench,
+                                                  monkeypatch):
+    """frame_step_batched replayed from its graph (the hand-image and label
+    kernels) against the eager program with their plain versions, the ATen
+    chain the kernels replaced, bit for bit: the flagship's golden frames,
+    and the 16 bench scenes with 0, 1 and 3 of them oversized (the crops,
+    the rescue, every frame full-frame)."""
+    from beats3d_tpu_torch.ops import hand_images_cuda as hi
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    batches = {"golden": bench.golden}
+    for bad in ((), (1,), (1, 4, 9)):
+        frames = bench.frames.clone()
+        for i in bad:
+            frames[i] = pipe.as_depth(kernel_bench.oversized(
+                bench.scenes[i], bench.intrin))
+        batches[f"{len(bad)} oversized"] = frames
+    for name, frames in batches.items():
+        got = pipe.batch(frames, bench.plane)
+        with monkeypatch.context() as m:
+            m.setattr(hi, "hand_images", hi.hand_images_plain)
+            m.setattr(hi, "place_labels", hi.place_labels_plain)
+            want = pl.frame_step_batched(pipe, frames, bench.plane)
+        _assert_same(got, want, name)
+    assert pipe.replays == len(batches)
+
+
+@pytest.mark.cuda
+def test_frame_graphs_launch_the_hand_kernels_once_per_body(cuda_dev, bench):
+    """In the batched program's graph every body that runs K1 (the crops,
+    the rescue, every frame full-frame) launches the hand-image and the
+    label kernel once each, and no other body launches them."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    pipe.batch(bench.frames, bench.plane)
+    graph = pipe.graphs[("frame_step_batched", tuple(bench.frames.shape))]
+    per_body = {b: (n["evaluate_layered_cuda"], n["hand_images"],
+                    n["place_labels"]) for b, n in graph.launches.items()}
+    assert per_body == {"": (0, 0, 0), "crop_then_rescue": (1, 1, 1),
+                        "crop_then_rescue/rescue": (1, 1, 1),
+                        "crop_then_rescue/none_oversized": (0, 0, 0),
+                        "full": (1, 1, 1)}
+
+
+@pytest.mark.cuda
+def test_crop_body_eval_runs_k1_and_the_hand_kernels_only(cuda_dev, bench):
+    """A traced replay of the batched call on the 16 bench scenes (the crop
+    body, nothing oversized): between the stage stamps that open and close
+    its ``eval`` stage the card runs the hand-image kernel (and the guard's
+    second kernel), K1 and the label kernel, once each, and nothing else:
+    none of the ATen crop, stencil, guard or placing chain."""
+    from beats3d_tpu_torch.runtime import pipeline as pl
+
+    pipe = pl.FramePipeline(bench.model, bench.intrin)
+    pipe.batch(bench.frames, bench.plane)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pipe.batch(bench.frames, bench.plane)
+        torch.cuda.synchronize()
+    ops = sorted((e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+    names = [n for _, n in ops]
+    stamps = [i for i, n in enumerate(names) if "stage_stamp_kernel" in n]
+    # front, eval, meanshift, heights, the end
+    assert len(stamps) == 5, names
+    inside = names[stamps[1] + 1:stamps[2]]
+    want = ["stencil_hand_images_kernel", "stencil_guard_kernel",
+            "evaluate_layered", "place_crop_labels_kernel"]
+    if not pipe.guarded:
+        want.remove("stencil_guard_kernel")
+    assert len(inside) == len(want), inside
+    for name, part in zip(inside, want):
+        assert part in name, inside
 
 
 # --- conditional graph nodes (runtime/graph_cond.py) ----------------------
@@ -1352,8 +1489,9 @@ def test_multiblock_grouping_matches_plain(cuda_dev, bench):
 def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
     """The live frame at depth_mm_level 1 (the multi-block grouping path in
     the captured graph): replays equal the eager program, the graph's
-    launches are K2 1 and the multi-block path 1 outside the cond and K1 1
-    and mean shift 1 in each branch, and a replay moves no count."""
+    launches are K2 1 and the multi-block path 1 outside the cond and K1,
+    mean shift, the hand-image and the label kernel 1 each in each branch,
+    and a replay moves no count."""
     from beats3d_tpu_torch.ops import components
     from beats3d_tpu_torch.runtime import pipeline as pl
 
@@ -1366,11 +1504,11 @@ def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
     graph = pipe.graphs[("frame_step", tuple(bench.frames.shape[1:]))]
     k1 = {"evaluate_layered_cuda": 1, "plane_band_gauss_cuda": 0,
           "hand_groups_grown": 0, "hand_groups_multiblock": 0,
-          "mean_shift_cuda": 1}
+          "mean_shift_cuda": 1, "hand_images": 1, "place_labels": 1}
     assert graph.launches == {
         "": {"evaluate_layered_cuda": 0, "plane_band_gauss_cuda": 1,
              "hand_groups_grown": 0, "hand_groups_multiblock": 1,
-             "mean_shift_cuda": 0},
+             "mean_shift_cuda": 0, "hand_images": 0, "place_labels": 0},
         "full": k1, "crop": k1}
     before = components.hand_groups_multiblock.launches
     pipe(bench.frames[5], bench.plane)

@@ -159,26 +159,33 @@ def test_guard_choice_matches_jax(tmp_path, rows, mode, spread):
 
 @pytest.mark.parametrize("guarded", [True, False])
 def test_guarded_eval_mutes_the_flagged_images(tmp_path, rng, guarded):
-    """_eval_layers on a guarded pipeline zeroes the images the per-image
-    guard flags (labels 65535, flags set) and leaves the others as the
-    unguarded eval labels them; unguarded (guard_mode "xla", or a model
+    """The eval stage on a guarded pipeline zeroes the hand images the
+    per-image guard flags (labels 65535, flags set) and leaves the others as
+    the unguarded eval labels them; unguarded (guard_mode "xla", or a model
     past 128 rows) it is the plain eval with no flags.  The labels of each
-    image are JAX's on the same (zeroed or not) image."""
+    image are JAX's on the same (zeroed or not) image.  Each frame's right
+    hand is the whole frame (group 1 everywhere), its left hand empty."""
     cfg_path = fixtures.layered_cfg_fixture(str(tmp_path), rng)
     tm = LayeredDecisionForest.load(cfg_path, labels_reduce=2, device="cpu")
     jm = JaxLayered.load(cfg_path, labels_reduce=2)
-    cfg = tpipe.PipelineConfig(height=96, width=512)
+    # train_dim_x = width: probe offsets at scale 1, as JAX's run takes
+    cfg = tpipe.PipelineConfig(height=96, width=512, train_dim_x=512)
     d = np.full((3, 96, 512), 65535, np.int32)
     yy, xx = np.mgrid[0:96, 0:512]
     blob = (yy - 48) ** 2 + (xx - 256) ** 2 < 40 ** 2
     d[0][blob] = 2300 + yy[blob]
     d[1] = rng.integers(1, 60000, (96, 512))
     d[2][blob] = 2300 + xx[blob]
-    pipe = types.SimpleNamespace(model=tm, guarded=guarded)
-    labels, flags = tpipe._eval_layers(torch.as_tensor(d), pipe, cfg, 1.0)
-    want_flags = np.array([False, guarded, False])
+    f = 1 << cfg.depth_mm_level
+    grown = torch.ones((3, 96 // f, 512 // f), dtype=torch.int32)
+    pipe = types.SimpleNamespace(model=tm, guarded=guarded, cfg=cfg)
+    labels, flags = tpipe._hand_eval(pipe, torch.as_tensor(d), grown)
+    want_flags = np.zeros(6, bool)
+    want_flags[2] = guarded
     np.testing.assert_array_equal(flags.numpy(), want_flags)
-    safe = np.where(want_flags[:, None, None], 0, d).astype(np.uint16)
+    imgs = np.full((6, 96, 512), 65535, np.int32)
+    imgs[0::2] = d
+    safe = np.where(want_flags[:, None, None], 0, imgs).astype(np.uint16)
     np.testing.assert_array_equal(labels.numpy(),
                                   np.asarray(jm.run(jnp.asarray(safe))))
-    assert (labels[1] == 65535).all() == guarded
+    assert (labels[2] == 65535).all() == guarded

@@ -30,7 +30,7 @@ from beats3d_tpu.runtime.midi import Midi as JaxMidi
 from beats3d_tpu.utils import CameraIntrinsics
 from beats3d_tpu_torch.data import synth
 from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.ops import components
+from beats3d_tpu_torch.ops import components, hand_images_cuda
 from beats3d_tpu_torch.runtime import app as tapp
 from beats3d_tpu_torch.runtime import pipeline as tpipe
 from beats3d_tpu_torch.runtime.camera import SyntheticSource
@@ -178,7 +178,9 @@ def test_guard_flags_match_jax(rng):
     blob[1] = rng.integers(1, 60000, blob[1].shape)
     blob[2, 30:60, 100:300] = rng.integers(2000, 2600, (30, 200))
     blob[2, 30:60, 100:300:7] = 9000
-    got = tpipe._incoherent_images(torch.as_tensor(blob), 2, cfg_t).numpy()
+    got = hand_images_cuda.incoherent_images(
+        torch.as_tensor(blob), 2, cfg_t.guard_spread,
+        cfg_t.guard_tile_frac).numpy()
     want = np.asarray(jpipe._incoherent_images(jnp.asarray(blob), 2, cfg_j))
     np.testing.assert_array_equal(got, want)
     assert got[1] and not got[0]
@@ -343,6 +345,40 @@ def test_frame_programs_run_mean_shift_through_its_kernel_wrapper(
                                   for t in range(3)]))
     tpipe.frame_step_batched(tp, batch, plane)
     assert calls == {"wrapper": 5, "plain": 5}
+
+
+def test_frame_programs_move_hand_images_through_their_kernel_wrappers(
+        pipes, monkeypatch):
+    """frame_step and frame_step_batched make K1's hand images and place
+    its labels only through hand_images_cuda.hand_images and place_labels,
+    which FrameGraph counts (pipeline.FRAME_KERNELS): once each per cond
+    branch that runs K1 (eagerly every branch runs: crop and full; crop,
+    rescue and full), each plain call from its wrapper."""
+    intrin, _, tp = pipes
+    assert hand_images_cuda.hand_images in tpipe.FRAME_KERNELS
+    assert hand_images_cuda.place_labels in tpipe.FRAME_KERNELS
+    calls = dict.fromkeys(("images", "images_plain", "labels",
+                           "labels_plain"), 0)
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    for key, name in (("images", "hand_images"), ("labels", "place_labels")):
+        monkeypatch.setattr(hand_images_cuda, name,
+                            counted(key, getattr(hand_images_cuda, name)))
+        monkeypatch.setattr(hand_images_cuda, f"{name}_plain",
+                            counted(f"{key}_plain", getattr(
+                                hand_images_cuda, f"{name}_plain")))
+    plane = tp._plane(_table_plane())
+    tpipe.frame_step(tp, tp.as_depth(_scene(intrin, 1)), plane)
+    assert set(calls.values()) == {2}
+    batch = tp.as_depth(np.stack([_scene(intrin, t, big=t == 1)
+                                  for t in range(3)]))
+    tpipe.frame_step_batched(tp, batch, plane)
+    assert set(calls.values()) == {5}
 
 
 def test_app_pipelined_matches_unpipelined(tmp_path, rng):
