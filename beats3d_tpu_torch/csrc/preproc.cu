@@ -28,7 +28,7 @@
 // halo stages 1.69 pixels per output.  On the bench frames a fifth of the
 // pixels survive the band, scattered over the table as well as on the
 // hands: more than half of the 64x16 tiles hold both kinds, a quarter of
-// the 4x2 output blocks (kernel_bench.k2_mix).
+// the 4x2 output blocks.
 //
 // Design.
 // * A block of 128 threads stages a 64x16 output tile plus its 2-pixel halo

@@ -1,77 +1,47 @@
-"""The port's redesigned kernels on the card: K1 (layered forest), B4
-(training split bits), B1 (single forest) and the grouping kernel, their
-inputs at the main paths' shapes, the least time the card could take for
-them, and the parent-against-change timing.
+"""The card inputs of the port's kernel rows and the work each kernel must
+do on them, for ``chip_smoke.py``'s checks and kernels line and for the
+card tests.
 
-    python -m beats3d_tpu_torch.kernel_bench --parent DIR
+The inputs: the committed flagship, 16 articulated two-hand 848x480 scenes
+(seeds 1000-1015), a RANSAC plane from the first and the pipeline's hand
+crops of them (``bench_inputs``, ``hand_crops``, ``k1_shapes``); scenes
+with a hand too big for the crop window (``oversized``); single-hand
+training frames (``hand_frames``) and B4's cases with the division edge
+(``b4_cases``, ``division_edge``); B1's cases and its pdf-sum mode's on the
+golden frames (``b1_cases``, ``pdf_sum_cases``, ``pdf_sum_differ``); the
+grouping stage's input and comparison (``grouping_depth``, ``serpentine``,
+``grouping_compare``, ``exact_centroids``); mean shift's label images
+(``ms_labels``); random dense forests and layered models past the
+flagship's widths (``random_forest``, ``wide_layered``); and a plane
+calibrated from the CPU's random stream on the card (``HostStreamPlane``).
 
-DIR holds earlier versions of some of ``forest_eval.cu`` (with
-``forest_walk.cuh``), ``train_features.cu`` and ``components.cu`` (for
-example ``git show REV:beats3d_tpu_torch/csrc/FILE``); an earlier K1 entry
-takes a ``lanes`` argument, its B1 entry may take one or not, and its
-entries a spill buffer (with K1's descriptors also in device memory) or
-not, as its source says.  The script builds what DIR holds with the port's nvcc flags into
-``build/``, checks that the earlier and the current kernels give the plain
-versions' outputs, and times them in turns (earlier, current, current,
-earlier) from CUDA graphs, for each source DIR holds:
-
-* components.cu (``grouping_turns``): the earlier stage, its union-find
-  launch (``b3d_label_components``) with the tensor operations the frame
-  ran around it, against the fused grouping kernel, live and batched,
-  with each one's device operations per call;
-* train_features.cu: B4 (``b4_turns``);
-* forest_eval.cu: B1 (``b1_turns``, then each lane grouping,
-  ``b1_variant``, and the dense forest's repack into K1's tables,
-  ``b1_repack``), B1's pdf-sum mode on the golden frames, its 2-tree shards
-  and r=2 at scale 0.5 (``pdf_sum_turns``) and K1 (``k1_turns``, then each
-  lane grouping, ``k1_sweep``).
-
-The B4 and B1 designs that measured slower (pixel lanes with the proposals
-split over warps, 4 or 8 pixels per warp step, a reciprocal fast path for
-the divisions, lanes along the walk, reading the next level ahead) are not
-kept; their times are in PERF.md.  It prints one JSON line per
-measurement.  Needs a CUDA card; imports nothing of JAX.
-
-The inputs are the ones ``chip_smoke.py`` uses: the committed flagship, 16
-articulated two-hand 848x480 scenes (seeds 1000-1015) and a RANSAC plane
-from the first (``bench_inputs``); 4 single-hand training frames and 64
-proposals (``b4_inputs``); the flagship's fine layer on the golden frames
-(``b1_cases``).  The bounds follow the card's published peaks: 3.35 TB/s
-of device memory and 67 TFLOP/s of float32 outside the tensor cores (the
-larger of bytes / rate and operations / rate is the bound).
+The work counts (``k1_work``, ``k2_work``, ``forest_work``,
+``pdf_sum_work``, ``b4_work``, ``grouping_work``, ``ms_work``) give the
+bytes and operations a kernel cannot avoid, and ``bound`` the least time
+the card could take for them at its published peaks: 3.35 TB/s of device
+memory and 67 TFLOP/s of float32 outside the tensor cores (the larger of
+bytes / rate and operations / rate).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import dataclasses
-import hashlib
-import json
 import os
-import re
-import subprocess
-import sys
 
 import numpy as np
 import torch
 
 from .data.synth import articulated_scene, part_labels
-from .models import LayeredDecisionForest
-from .models.forest import PackedForest, forest_dims, kernel_tables
+from .models import FLAGSHIP, LayeredDecisionForest, load_flagship
+from .models.forest import PackedForest, forest_dims
 from .models.layered import run_layered
-from .ops import (components, cuda_lib, forest_eval, forest_eval_cuda,
-                  hand_images_cuda, points, train_features,
-                  train_features_cuda)
+from .ops import (components, forest_eval, forest_eval_cuda,
+                  hand_images_cuda, points)
 from .ops import plane as plane_ops
 from .runtime import pipeline as pl
 from .train.proposals import make_random_features
 from .utils import CameraIntrinsics
-from .utils.profiler import graph_ms
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGSHIP = os.path.join(ROOT, "models", "flagship")
-SERVING = os.path.join(FLAGSHIP, "m1_serving.npy.gz")
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32, no tensor cores
 BATCH = 16
@@ -84,25 +54,6 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def load_flagship(device, model_dir=FLAGSHIP, layer_files=None):
-    """The committed trained flagship (coarse D=8 T=4 -> fine D=16 T=4), or
-    the layered model of another ``model_dir``, on ``device``, labels at
-    half resolution; ``layer_files`` as ``LayeredDecisionForest.load``
-    takes it."""
-    return LayeredDecisionForest.load(
-        os.path.join(model_dir, "model_cfg.json"), labels_reduce=2,
-        device=device, layer_files=layer_files)
-
-
-def load_serving_flagship(device):
-    """The flagship's serving-depth variant on ``device``: the committed
-    coarse layer and configuration with ``m1_serving.npy.gz`` (the fine
-    layer cut to D=13 with refit pdfs by ``scripts.truncate_fine``) as
-    layer 1, the model the JAX package's bench stages from the same
-    files."""
-    return load_flagship(device, layer_files={1: SERVING})
 
 
 @dataclasses.dataclass
@@ -379,6 +330,34 @@ def b1_cases(model, dev):
     }
 
 
+def pdf_sum_cases(model, dev):
+    """B1's pdf-sum mode on the golden frames: name -> (dense forest,
+    kwargs): the fine layer (T=4, D=16, C=7) at r=1, its two 2-tree shards
+    (the tree-sharded eval's), and r=2 at scale 0.5."""
+    depth, _ = b1_cases(model, dev)
+    fine = model.layers[1].flat
+    return depth, {
+        "golden_r1": (fine, dict(labels_reduce=1)),
+        "shard_0": (fine[:2].contiguous(), dict(labels_reduce=1)),
+        "shard_1": (fine[2:].contiguous(), dict(labels_reduce=1)),
+        "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5)),
+    }
+
+
+def pdf_sum_differ(got, want):
+    """Where B1's pdf-sum outputs (pdf, eligible, all_done) differ from the
+    plain version's: eligibility; sums (bits) and all_done on eligible
+    pixels; sums or all_done off 0 and True on ineligible ones."""
+    pdf, elig, done = (t.cpu().numpy() for t in got)
+    w_pdf, w_elig, w_done = (t.cpu().numpy() for t in want)
+    e = elig
+    return dict(
+        eligible=int((elig != w_elig).sum()),
+        sums=int((pdf.view(np.uint32) != w_pdf.view(np.uint32))[e].sum()),
+        all_done=int((done != w_done)[e].sum()),
+        ineligible_nonzero=int(pdf[~e].any(-1).sum() + (~done[~e]).sum()))
+
+
 def random_forest(rng, trees, levels, classes, leaf_prob=0.05,
                   off_mag=400.0):
     """A dense (trees, 2**levels - 1, 7 + 2 classes) float32 forest from
@@ -525,414 +504,3 @@ def k2_work(depth):
     written once; per pixel the deprojection and plane test (12 operations,
     2 of them divisions), 4 per tap over 25 taps, the division and floor."""
     return 8 * depth.numel(), 114 * depth.numel()
-
-
-# ------------------------------------------------ the earlier kernels
-
-PARENT_SOURCES = ("forest_eval.cu", "train_features.cu", "components.cu")
-
-
-@dataclasses.dataclass
-class ParentLib:
-    """An earlier version's kernels: the loaded library, nvcc's log, the
-    sources built, whether its B1 entry takes ``lanes``, and whether its
-    forest entries take a spill buffer (with K1's descriptors in device
-    memory: the entries of sources from this tree on)."""
-    lib: ctypes.CDLL
-    log: str
-    names: set
-    b1_lanes: bool
-    spill: bool
-
-
-def build_parent(src_dir) -> ParentLib:
-    """Build the earlier kernels of ``src_dir`` (any of forest_eval.cu with
-    its forest_walk.cuh, train_features.cu and components.cu) into
-    build/beats3d_tpu_torch_parent/ with the port's flags and bind the
-    entries as their source declares them."""
-    srcs = [os.path.join(src_dir, f) for f in PARENT_SOURCES
-            if os.path.exists(os.path.join(src_dir, f))]
-    if not srcs:
-        raise SystemExit(f"kernel_bench: {src_dir} holds none of "
-                         f"{PARENT_SOURCES}")
-    names = {os.path.basename(f) for f in srcs}
-    b1_lanes = spill = False
-    if "forest_eval.cu" in names:
-        with open(srcs[0]) as fh:
-            text = fh.read()
-        entry = re.search(r"b3d_evaluate_forest\(([^)]*)\)", text)
-        b1_lanes = entry is not None and "int lanes" in entry.group(1)
-        spill = "b3d_forest_spill" in text
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    hashed = srcs + [f for f in (os.path.join(src_dir, "forest_walk.cuh"),)
-                     if os.path.exists(f)]
-    for f in hashed:
-        with open(f, "rb") as fh:
-            h.update(fh.read())
-    out_dir = os.path.join(ROOT, "build", "beats3d_tpu_torch_parent")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"libparent_{h.hexdigest()[:16]}.so")
-    proc = subprocess.run(
-        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", path, *srcs],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the earlier kernels:\n{proc.stderr}")
-    lib = ctypes.CDLL(path)
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    descs = ctypes.POINTER(cuda_lib.LayerDesc)
-    if "forest_eval.cu" in names and spill:
-        cuda_lib.bind_forest(lib)
-    elif "forest_eval.cu" in names:
-        lib.b3d_evaluate_layered.argtypes = [
-            vp, vp, i, i, i, i, f, descs, i, vp, i, i, vp]
-        lib.b3d_evaluate_layered.restype = i
-        lib.b3d_evaluate_forest.argtypes = [
-            vp, vp, i, i, i, i, f, vp, i, i, i, vp, i, i, *[i] * b1_lanes, vp]
-        lib.b3d_evaluate_forest.restype = i
-        lib.b3d_forest_pdf_sum.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp]
-        lib.b3d_forest_pdf_sum.restype = i
-    if "train_features.cu" in names:
-        lib.b3d_train_feature_bits.argtypes = [vp, vp, i, vp, vp, i, i, i, vp]
-        lib.b3d_train_feature_bits.restype = i
-    if "components.cu" in names:
-        lib.b3d_label_components.argtypes = [vp, vp, i, i, i, vp]
-        lib.b3d_label_components.restype = i
-    return ParentLib(lib, proc.stdout + proc.stderr, names, b1_lanes, spill)
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check(st, what):
-    if st:
-        raise RuntimeError(f"{what}: CUDA error {st}")
-
-
-def current_lib():
-    """The port's own library as a :class:`ParentLib` (its B1 entry takes
-    ``lanes``, its forest entries a spill buffer)."""
-    return ParentLib(cuda_lib.library(), "", {"forest_eval.cu"}, True, True)
-
-
-def _spill_arg(parent, ints, device):
-    """The spill argument of an entry from ``parent``: a buffer of ``ints``
-    int2 (or none) where the entry takes one, else nothing."""
-    if not parent.spill:
-        return ()
-    return (None if not ints else torch.empty(
-        2 * ints, dtype=torch.int32, device=device).data_ptr(),)
-
-
-def parent_k1(parent, model, descs):
-    lib = parent.lib
-
-    def run(depth, r=2, scale=1.0):
-        n, h, w = depth.shape
-        out = torch.empty((n, h // r, w // r), dtype=torch.int32,
-                          device=depth.device)
-        c = model.conditions
-        if parent.spill:
-            args = (descs.host, descs.dev.data_ptr(), len(descs), c.data_ptr(),
-                    c.shape[0], 0, *_spill_arg(parent, lib.b3d_layered_spill(
-                        n, h, w, r, descs.host, len(descs), 0), depth.device))
-        else:
-            args = (descs.host, len(descs), c.data_ptr(), c.shape[0], 0)
-        _check(lib.b3d_evaluate_layered(
-            depth.data_ptr(), out.data_ptr(), n, h, w, r, scale, *args,
-            _stream()), "earlier K1")
-        return out
-    return run
-
-
-def forest_runner(parent, *, lanes=0):
-    """B1 from ``parent`` (a :class:`ParentLib`, or the current library as
-    one) with a lane grouping (0: the kernel's choice; None: an earlier
-    entry that takes none)."""
-    lib = parent.lib
-
-    def run(depth, flat, labels_reduce=1, filter_images=None, filter_class=-1,
-            scale_factor=1.0, write_all_eligible=True):
-        n, h, w = depth.shape
-        r = labels_reduce
-        t, lv, c = forest_dims(flat.shape)
-        out = torch.empty((n, h // r, w // r), dtype=torch.int32,
-                          device=depth.device)
-        extra = () if lanes is None else (lanes,)
-        spill = _spill_arg(parent, parent.spill and lib.b3d_forest_spill(
-            n, h, w, r, t, c, 0, lanes or 0), depth.device)
-        _check(lib.b3d_evaluate_forest(
-            depth.data_ptr(), out.data_ptr(), n, h, w, r, float(scale_factor),
-            flat.data_ptr(), t, lv, c,
-            None if filter_images is None else filter_images.data_ptr(),
-            int(filter_class), int(write_all_eligible), *extra, *spill,
-            _stream()), "B1")
-        return out
-    return run
-
-
-def pdf_sum_runner(parent):
-    """B1's pdf-sum mode from ``parent``'s entry."""
-    lib = parent.lib
-
-    def run(depth, flat, labels_reduce=1, scale_factor=1.0):
-        n, h, w = depth.shape
-        r = labels_reduce
-        t, lv, c = forest_dims(flat.shape)
-        shape = (n, h // r, w // r)
-        pdf = torch.empty(shape + (c,), dtype=torch.float32,
-                          device=depth.device)
-        elig = torch.empty(shape, dtype=torch.uint8, device=depth.device)
-        done = torch.empty(shape, dtype=torch.uint8, device=depth.device)
-        spill = _spill_arg(parent, parent.spill and lib.b3d_forest_spill(
-            n, h, w, r, t, c, 1, 0), depth.device)
-        _check(lib.b3d_forest_pdf_sum(
-            depth.data_ptr(), pdf.data_ptr(), elig.data_ptr(), done.data_ptr(),
-            n, h, w, r, float(scale_factor), flat.data_ptr(), t, lv, c,
-            *spill, _stream()), "B1 pdf-sum")
-        return pdf, elig.view(torch.bool), done.view(torch.bool)
-    return run
-
-
-def bits_runner(lib):
-    """B4 from ``lib``'s earlier entry, whose C signature it shares."""
-    def run(depth, props, active):
-        n, h, w = depth.shape
-        p = props.shape[0]
-        out = torch.empty((n, (p + 31) // 32, h, w), dtype=torch.int32,
-                          device=depth.device)
-        _check(lib.b3d_train_feature_bits(
-            depth.data_ptr(), props.data_ptr(), p,
-            None if active is None else active.data_ptr(), out.data_ptr(),
-            n, h, w, _stream()), "B4")
-        return out
-    return run
-
-
-def parent_stage(lib):
-    """The earlier grouping stage (an earlier components.cu's
-    ``b3d_label_components``, the union-find launch, with the tensor
-    operations around it that the frame ran before the fused kernel):
-    shrink, labels, the selection in tensor operations, the grow."""
-    def labels(mask):
-        m = mask.contiguous()
-        out = torch.empty(m.shape, dtype=torch.int64, device=m.device)
-        _check(lib.b3d_label_components(m.data_ptr(), out.data_ptr(),
-                                        *m.shape, _stream()),
-               "earlier union-find")
-        return out
-
-    def run(depth1, level, pct):
-        small = points.shrink_image(depth1, level)
-        groups, g_info = components.make_hand_groups_plain(small, pct,
-                                                           label=labels)
-        return points.grow_groups(groups), g_info, groups
-    return run
-
-
-def device_ops(fn):
-    """Device operations (kernels, copies, sets) of one call of fn, from a
-    torch.profiler trace, after a warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
-def turns(old, new, iters=20):
-    """Times of old and new in the order old, new, new, old."""
-    t = [graph_ms(old, iters), graph_ms(new, iters), graph_ms(new, iters),
-         graph_ms(old, iters)]
-    return dict(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]],
-                old_mean_ms=(t[0] + t[3]) / 2, new_mean_ms=(t[1] + t[2]) / 2)
-
-
-def say(what, **kw):
-    print(json.dumps({"bench": what, **kw}), flush=True)
-
-
-def bench_b4(parent, intrin, dev, smi):
-    old = bits_runner(parent.lib)
-    for name, (d, props, act) in b4_cases(intrin, dev).items():
-        want = train_features.train_feature_bits_plain(d, props, act)
-        new = train_features_cuda.train_feature_bits_cuda
-        mism = (int((old(d, props, act) != want).sum()),
-                int((new(d, props, act) != want).sum()))
-        bms, by = bound(*b4_work(d, props, act))
-        t = turns(lambda: old(d, props, act), lambda: new(d, props, act))
-        say("b4_turns", card=smi, case=name, dims=list(d.shape),
-            active_pixels=None if act is None else int(act.sum()),
-            word_mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
-            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
-            **t)
-
-
-def bench_b1(parent, current, model, dev, smi):
-    old = forest_runner(parent, lanes=0 if parent.b1_lanes else None)
-    new = forest_eval_cuda.evaluate_forest_cuda
-    depth, cases = b1_cases(model, dev)
-    for name, (flat, kw) in cases.items():
-        want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
-        mism = (int((old(depth, flat, **kw) != want).sum()),
-                int((new(depth, flat, **kw) != want).sum()))
-        bms, by = bound(*forest_work(depth, flat, **kw))
-        t = turns(lambda: old(depth, flat, **kw), lambda: new(depth, flat, **kw))
-        say("b1_turns", card=smi, case=name, trees=int(flat.shape[0]),
-            mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
-            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
-            **t)
-        rows = []
-        for lanes in (1, 2, 4):
-            run = forest_runner(current, lanes=lanes)
-            rows.append(dict(
-                lanes=lanes,
-                mismatches=int((run(depth, flat, **kw) != want).sum()),
-                ms=graph_ms(lambda: run(depth, flat, **kw))))
-        say("b1_variant", card=smi, case=name, rows=rows)
-    one = cases["one_tree"][0]
-    say("b1_repack", card=smi, case="one_tree",
-        repacked="models.forest.kernel_tables of one D=16 tree",
-        ms=graph_ms(lambda: kernel_tables(one)))
-
-
-def bench_grouping(parent, inp, smi):
-    """The earlier grouping stage (its union-find launch and the tensor
-    operations around it) against the fused kernel on the live frame and
-    the batch of 16: both equal to the plain composition, their device
-    operations per call, and their times in turns from CUDA graphs."""
-    old = parent_stage(parent.lib)
-    new = components.hand_groups_grown
-    depth1 = grouping_depth(inp)
-    level, pct = inp.pipe.cfg.depth_mm_level, inp.pipe.gms
-    for name, d in (("live", depth1[:1]), ("batch", depth1)):
-        want = components.hand_groups_grown_plain(d, level, pct)
-        mism = []
-        for fn in (old, new):
-            got = fn(d, level, pct)
-            torch.cuda.synchronize()
-            mism.append(sum(int((a.view(torch.int32) != b.view(torch.int32))
-                                .sum()) for a, b in zip(got, want)))
-        hs, ws = want[2].shape[-2:]
-        bms, by = bound(*grouping_work(d.shape[0], hs, ws, "stage"))
-        t = turns(lambda: old(d, level, pct), lambda: new(d, level, pct))
-        say("grouping_turns", card=smi, case=name, dims=list(d.shape),
-            mismatches_old_new_vs_plain=mism,
-            device_ops_old_new=[device_ops(lambda: old(d, level, pct)),
-                                device_ops(lambda: new(d, level, pct))],
-            bound_ms=bms, bound_by=by, share_old=bms / t["old_mean_ms"],
-            share_new=bms / t["new_mean_ms"], **t)
-
-
-def pdf_sum_cases(model, dev):
-    """B1's pdf-sum mode on the golden frames: name -> (dense forest,
-    kwargs): the fine layer (T=4, D=16, C=7) at r=1, its two 2-tree shards
-    (the tree-sharded eval's), and r=2 at scale 0.5."""
-    depth, _ = b1_cases(model, dev)
-    fine = model.layers[1].flat
-    return depth, {
-        "golden_r1": (fine, dict(labels_reduce=1)),
-        "shard_0": (fine[:2].contiguous(), dict(labels_reduce=1)),
-        "shard_1": (fine[2:].contiguous(), dict(labels_reduce=1)),
-        "scale_0.5": (fine, dict(labels_reduce=2, scale_factor=0.5)),
-    }
-
-
-def pdf_sum_differ(got, want):
-    """Where B1's pdf-sum outputs (pdf, eligible, all_done) differ from the
-    plain version's: eligibility; sums (bits) and all_done on eligible
-    pixels; sums or all_done off 0 and True on ineligible ones."""
-    pdf, elig, done = (t.cpu().numpy() for t in got)
-    w_pdf, w_elig, w_done = (t.cpu().numpy() for t in want)
-    e = elig
-    return dict(
-        eligible=int((elig != w_elig).sum()),
-        sums=int((pdf.view(np.uint32) != w_pdf.view(np.uint32))[e].sum()),
-        all_done=int((done != w_done)[e].sum()),
-        ineligible_nonzero=int(pdf[~e].any(-1).sum() + (~done[~e]).sum()))
-
-
-def bench_pdf_sum(parent, model, dev, smi):
-    """B1's pdf-sum mode, the earlier entry against this one, in turns."""
-    old = pdf_sum_runner(parent)
-    new = forest_eval_cuda.forest_pdf_sum_cuda
-    depth, cases = pdf_sum_cases(model, dev)
-    for name, (flat, kw) in cases.items():
-        want = forest_eval.forest_pdf_sum(
-            depth, PackedForest.from_flat(flat).tables(), **kw)
-        differ = [pdf_sum_differ(fn(depth, flat, **kw), want)
-                  for fn in (old, new)]
-        bms, by = bound(*pdf_sum_work(depth, flat, **kw))
-        t = turns(lambda: old(depth, flat, **kw), lambda: new(depth, flat, **kw))
-        say("pdf_sum_turns", card=smi, case=name, trees=int(flat.shape[0]),
-            differ_old_new_vs_plain=differ, bound_ms=bms, bound_by=by,
-            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
-            **t)
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="directory with earlier versions of some of "
-                         "forest_eval.cu (and forest_walk.cuh), "
-                         "train_features.cu and components.cu")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_bench: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    say("device", card=smi)
-    parent = build_parent(args.parent)
-    current = current_lib()
-    say("build", parent_sources=sorted(parent.names),
-        parent_ptxas=cuda_lib.ptxas_summary(parent.log),
-        ptxas=cuda_lib.ptxas_summary(cuda_lib.LIBRARY.build.log))
-    inp = bench_inputs(dev)
-    if "components.cu" in parent.names:
-        bench_grouping(parent, inp, smi)
-    if "train_features.cu" in parent.names:
-        bench_b4(parent, inp.intrin, dev, smi)
-    if "forest_eval.cu" not in parent.names:
-        return 0
-    m = inp.model
-    bench_b1(parent, current, m, dev, smi)
-    bench_pdf_sum(parent, m, dev, smi)
-    K1 = forest_eval_cuda.evaluate_layered_cuda
-    descs = forest_eval_cuda.layer_descs(m.layers, dev)
-    old_k1 = parent_k1(parent, m, descs)
-    for name, depth in k1_shapes(inp).items():
-        want = forest_eval_cuda.evaluate_layered_plain(
-            depth, m.layers, m.conditions, labels_reduce=2)
-        a, b = old_k1(depth), K1(depth, m.layers, m.conditions,
-                                 labels_reduce=2, descs=descs)
-        mism = (int((a != want).sum()), int((b != want).sum()))
-        bytes_moved, ops, _ = k1_work(m, depth)
-        bms, by = bound(bytes_moved, ops)
-        t = turns(lambda: old_k1(depth),
-                  lambda: K1(depth, m.layers, m.conditions, labels_reduce=2,
-                             descs=descs))
-        say("k1_turns", card=smi, shape=name, dims=list(depth.shape),
-            mismatches_old_new_vs_plain=mism, bound_ms=bms, bound_by=by,
-            share_old=bms / t["old_mean_ms"], share_new=bms / t["new_mean_ms"],
-            **t)
-    for name, depth in k1_shapes(inp).items():
-        ref = K1(depth, m.layers, m.conditions, labels_reduce=2, descs=descs)
-        rows = []
-        for lanes in (1, 2, 4, 8):
-            kw = dict(labels_reduce=2, descs=descs, lanes=lanes)
-            got = K1(depth, m.layers, m.conditions, **kw)
-            rows.append(dict(
-                lanes=lanes, mismatches=int((got != ref).sum()),
-                ms=graph_ms(lambda: K1(depth, m.layers, m.conditions, **kw))))
-        say("k1_sweep", card=smi, shape=name, rows=rows)
-
-
-if __name__ == "__main__":
-    sys.exit(main())

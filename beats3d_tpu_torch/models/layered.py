@@ -114,7 +114,7 @@ class LayeredDecisionForest:
     # a routed model's counters (utils.profiler.counters), else None
     counts: Optional[RoutingCounts] = dataclasses.field(
         default=None, repr=False, compare=False)
-    # the kernel's layer descriptors, built at the first CUDA evaluation
+    # the kernel's layer descriptors, built at from_numpy for a CUDA model
     kernel_descs: object = dataclasses.field(default=None, repr=False,
                                              compare=False)
 
@@ -154,7 +154,9 @@ class LayeredDecisionForest:
         ``LayerSpec.flat``, ``.filter_model`` and ``.filter_model_class``;
         ``conditions`` (K, 2) or (K, 3) int32, or rows of 2 or 3 entries;
         ``label_colors`` (classes, 4) uint8.  A routed model's counters
-        join ``utils.profiler.counters``."""
+        join ``utils.profiler.counters``.  A CUDA model carries K1's layer
+        descriptors (``kernel_descs``), built once here on its tables'
+        device (``device`` may carry no index)."""
         device = torch.device(device)
         specs = []
         for flat, fm, fc in layers:
@@ -190,6 +192,9 @@ class LayeredDecisionForest:
             labels_reduce=labels_reduce,
             counts=None if conditions.shape[1] == 2 else RoutingCounts(
                 len(specs), experts, device),
+            kernel_descs=forest_eval_cuda.layer_descs(
+                specs, specs[0].header.device)
+            if device.type == "cuda" else None,
         )
 
     def filter_specs(self) -> Tuple:
@@ -208,11 +213,8 @@ class LayeredDecisionForest:
 def run_layered(depth, model: LayeredDecisionForest, *, labels_reduce: int,
                 scale_factor: float = 1.0):
     """The layered forward pass: the CUDA kernel for CUDA tensors, the plain
-    evaluator for CPU tensors (see forest_eval_cuda.evaluate_layered_cuda).
-    The kernel's layer descriptors are built once per model."""
-    if depth.device.type == "cuda" and model.kernel_descs is None:
-        model.kernel_descs = forest_eval_cuda.layer_descs(model.layers,
-                                                          depth.device)
+    evaluator for CPU tensors (see forest_eval_cuda.evaluate_layered_cuda),
+    with the model's own layer descriptors."""
     return forest_eval_cuda.evaluate_layered_cuda(
         depth, model.layers, model.conditions,
         labels_reduce=labels_reduce, scale_factor=scale_factor,

@@ -100,17 +100,15 @@ def label_components_plain(mask):
     return lab.reshape(*lead, h, w)
 
 
-def make_hand_groups_plain(depth_small, pct_thresh, label=None):
-    """:func:`make_hand_groups` in tensor operations, on any device.
-    ``label``: the labelling of a (B, H, W) bool mask (default
-    :func:`label_components_plain`)."""
+def make_hand_groups_plain(depth_small, pct_thresh):
+    """:func:`make_hand_groups` in tensor operations, on any device."""
     lead = depth_small.shape[:-2]
     h, w = depth_small.shape[-2:]
     n = h * w
     dev = depth_small.device
     mask = depth_small.reshape(-1, h, w).to(torch.int32) > 0
     b = mask.shape[0]
-    labels = (label or label_components_plain)(mask)
+    labels = label_components_plain(mask)
 
     seg = labels.reshape(b, n).clamp(max=n - 1)
     ones = mask.reshape(b, n).to(torch.float32)

@@ -150,9 +150,7 @@ def _compile() -> Build:
     return Build(path, seconds, log)
 
 
-def bind_forest(lib):
-    """Declares the C signatures of csrc/forest_eval.cu's entries on
-    ``lib`` (the port's library, or kernel_bench's build of this source)."""
+def _bind(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     descs = ctypes.POINTER(LayerDesc)
@@ -162,11 +160,10 @@ def bind_forest(lib):
         vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp,
     ]
     lib.b3d_evaluate_layered.restype = i
-    if hasattr(lib, "b3d_evaluate_layered_routed"):    # an earlier source
-        lib.b3d_evaluate_layered_routed.argtypes = [     # may lack it
-            vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp, vp,
-        ]
-        lib.b3d_evaluate_layered_routed.restype = i
+    lib.b3d_evaluate_layered_routed.argtypes = [
+        vp, vp, i, i, i, i, f, descs, vp, i, vp, i, i, vp, vp, vp,
+    ]
+    lib.b3d_evaluate_layered_routed.restype = i
     lib.b3d_forest_spill.argtypes = [i, i, i, i, i, i, i, i]
     lib.b3d_forest_spill.restype = ll
     lib.b3d_evaluate_forest.argtypes = [
@@ -177,12 +174,6 @@ def bind_forest(lib):
         vp, vp, vp, vp, i, i, i, i, f, vp, i, i, i, vp, vp,
     ]
     lib.b3d_forest_pdf_sum.restype = i
-
-
-def _bind(lib):
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.c_longlong
-    bind_forest(lib)
     lib.b3d_plane_band_gauss.argtypes = [
         vp, vp, i, i, i, vp, f, f, f, f, ctypes.POINTER(ctypes.c_float), vp,
     ]

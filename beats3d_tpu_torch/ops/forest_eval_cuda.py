@@ -91,8 +91,8 @@ class LayerDescs:
 def layer_descs(layers, device):
     """The kernel's layer descriptors (:class:`LayerDescs`) for ``layers``,
     whose repacked tables must lie on ``device``.  Build it once per model
-    (``models.layered.run_layered`` keeps it on the model): it copies the
-    descriptors to the card."""
+    (``LayeredDecisionForest.from_numpy`` keeps it on a CUDA model): it
+    copies the descriptors to the card."""
     if not len(layers):
         raise ValueError("evaluate_layered_cuda: a model needs a layer")
     descs = (cuda_lib.LayerDesc * len(layers))()
@@ -141,10 +141,11 @@ def evaluate_layered_cuda(depth, layers, conditions, *, labels_reduce: int,
     tables and conditions on the same card; returns int32.  ``descs``:
     ``layer_descs(layers)``, built here when not given.  ``lanes``: lanes
     per pixel, 0 to let the kernel choose from the model and the input
-    size (as the pipeline does); the others (1, 2, 4, 8, 16) serve the card
-    tests and kernel_bench's sweep.  ``counts``: a routed model's (layers,
-    3) int64 routing counters on the depth's device (``RoutingCounts.acc``),
-    which the launch adds to; a two-column table takes none.
+    size (as the pipeline does); the others (1, 2, 4, 8, 16) let the card
+    tests hold every lane grouping to the plain version.  ``counts``: a
+    routed model's (layers, 3) int64 routing counters on the depth's
+    device (``RoutingCounts.acc``), which the launch adds to; a two-column
+    table takes none.
     A routed table runs the general kernel's routed instantiation, never
     the parameter kernel.  On the CPU: the plain version, in the depth's
     dtype.

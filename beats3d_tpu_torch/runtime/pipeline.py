@@ -539,12 +539,6 @@ class FramePipeline:
         self.guarded = self.backend == "cuda" and guards(self.cfg, model)
         if self.backend == "cuda":
             graph_cond.require_support(self.device)
-        if self.backend == "cuda" and model.kernel_descs is None:
-            # K1's layer descriptors, copied to the card now rather than in
-            # a frame graph's warm-up (on the tables' device: the model's
-            # may carry no index)
-            model.kernel_descs = forest_eval_cuda.layer_descs(
-                model.layers, model.layers[0].header.device)
         if mean_shift_variances is None:
             # 3d_bz.py:108-110 — class 1 (hand) wide, fingertips tight.
             mean_shift_variances = np.array(

@@ -8,7 +8,7 @@ through the tap thresholds and the HandState machines emit note on/offs,
 on the geometry family the model was trained on.  The hands come from
 seed 5; the app is ``runtime.app.BeatsApp`` with the committed flagship
 (``run_session`` takes any model, such as its serving-depth variant from
-``kernel_bench.load_serving_flagship``).
+``models.load_serving_flagship``).
 
     python -m beats3d_tpu_torch.scripts.bz3d_session_v2 [frames]
 
@@ -30,7 +30,7 @@ from ..data.synth import compose, hand_cloud, splat_hand, table_depth
 from ..runtime.app import AppConfig, BeatsApp
 from ..runtime.camera import Frame
 from ..runtime.midi import Midi
-from ..kernel_bench import load_flagship
+from ..models import load_flagship
 from ..utils import CameraIntrinsics
 from . import flagship_v2 as v2
 from . import resolve_device

@@ -46,7 +46,7 @@ from ..data.blocks import CompressedDataset
 from ..data.datagen import DatagenConfig, LiveDataConvert
 from ..data.dataset import ArrayDataset, DatasetConfig
 from ..data.synth import articulated_scene
-from ..kernel_bench import load_flagship
+from ..models import load_flagship
 from ..models.layered import run_layered
 from ..ops import forest_eval_cuda
 from ..train import train_forest

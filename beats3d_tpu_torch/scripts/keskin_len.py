@@ -51,7 +51,7 @@ import torch
 
 from ..data.dataset import ArrayDataset
 from ..data.synth import articulated_scene, shape_class
-from ..kernel_bench import FLAGSHIP, load_flagship
+from ..models import FLAGSHIP, load_flagship
 from ..models.layered import LayeredDecisionForest
 from ..train import train_forest
 from ..utils import CameraIntrinsics

@@ -54,7 +54,7 @@ from ..data.dataset import DatasetConfig
 from ..models.forest import PackedForest
 from ..ops.forest_eval import depth_difference_feature
 from ..train.trainer import CUTOFF_THRESH as CUTOFF
-from ..kernel_bench import load_flagship
+from ..models import load_flagship
 from . import flagship_v2 as v2
 from . import resolve_device
 from .flagship_v2 import eval_chunked

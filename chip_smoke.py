@@ -199,7 +199,8 @@ from beats3d_tpu_torch.data.synth import articulated_scene  # noqa: E402
 from beats3d_tpu_torch import kernel_bench as kb  # noqa: E402
 from beats3d_tpu_torch import probes  # noqa: E402
 from beats3d_tpu_torch import release  # noqa: E402
-from beats3d_tpu_torch.models import LayeredDecisionForest  # noqa: E402
+from beats3d_tpu_torch.models import (  # noqa: E402
+    FLAGSHIP, LayeredDecisionForest, load_flagship, load_serving_flagship)
 from beats3d_tpu_torch.models.forest import (  # noqa: E402
     DecisionForest, DecisionTree, PackedForest)
 from beats3d_tpu_torch.models.layered import run_layered  # noqa: E402
@@ -229,7 +230,6 @@ from beats3d_tpu_torch.utils.intrinsics import CameraIntrinsics  # noqa: E402
 from beats3d_tpu_torch.utils.profiler import (  # noqa: E402
     graph_ms, host_ms, reset_counters)
 
-FLAGSHIP = kb.FLAGSHIP
 K1 = forest_eval_cuda.evaluate_layered_cuda
 K2 = preproc_cuda.plane_band_gauss_cuda
 B1 = forest_eval_cuda.evaluate_forest_cuda
@@ -2020,7 +2020,7 @@ def phase_flagship_build(inp, smi):
 
 def phase_serving_path(inp, smi):
     """The committed serving-depth variant (``m1_serving.npy.gz``, the fine
-    layer cut to D=13, through ``kernel_bench.load_serving_flagship``) on
+    layer cut to D=13, through ``models.load_serving_flagship``) on
     the card: a live pipelined BeatsApp over the 16 bench scenes (60 timed
     ticks, 16 under torch.profiler) and 5 batched B=16 calls under the
     profiler, K1 traced once per call by name with its lanes; the replays
@@ -2032,7 +2032,7 @@ def phase_serving_path(inp, smi):
     with the serving model and with the full flagship, from the same plane
     uniforms.  Returns the kernels line's entry of the serving K1."""
     dev, intrin, plane = inp.frames.device, inp.intrin, inp.plane
-    model = kb.load_serving_flagship(dev)
+    model = load_serving_flagship(dev)
     depth = model.layers[1].forest.max_depth
     scenes = [s for s in inp.scenes]
     source = bz3d_session_v2.FramesSource(
@@ -2099,7 +2099,7 @@ def phase_serving_path(inp, smi):
             diffs[f"k1 {name}"] = mism
 
     # the card against the CPU
-    cpu = pl.FramePipeline(kb.load_serving_flagship("cpu"), intrin)
+    cpu = pl.FramePipeline(load_serving_flagship("cpu"), intrin)
     worst = 0.0
     for i in range(SERVING_CPU_FRAMES):
         a, b = pipe(inp.frames[i], plane), cpu(inp.scenes[i], plane.cpu())
@@ -2180,7 +2180,7 @@ def phase_keskin_path(inp, smi):
     replay against the eager program; per hand (crop), the pixels each
     expert walked.  Returns the kernels line's entry of the routed K1."""
     dev, intrin, plane = inp.frames.device, inp.intrin, inp.plane
-    model = kb.load_flagship(dev, KESKIN)
+    model = load_flagship(dev, KESKIN)
     scenes = [articulated_scene(intrin, np.random.default_rng(1000 + t),
                                 two_hands=True, flex_scale=KESKIN_FLEX,
                                 height_range=KESKIN_HEIGHTS)[0]
@@ -3237,7 +3237,7 @@ def phase_mesh_path(inp, smi, forest_d16):
     batch_sharded on the 16 bench scenes (4x1) and train_forest(mesh=) at
     the fine layer's width (2x2), each held to its single-device or plain
     counterpart.  Returns the pdf-sum launches over the ranks."""
-    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
+    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
     fine = inp.model.layers[1].flat
     d_tr, l_tr = kb.hand_frames(inp.intrin, range(3000, 3000 + TRAIN_FRAMES))
     d_te, l_te = kb.hand_frames(inp.intrin, range(3100, 3100 + TEST_FRAMES))
@@ -3245,7 +3245,7 @@ def phase_mesh_path(inp, smi, forest_d16):
         ("eval", jobs.eval_job, (2, 2),
          dict(depth=gold["depth"], forest=fine.cpu().numpy())),
         ("batch", jobs.batch_job, (4, 1), dict(
-            model_cfg=os.path.join(kb.FLAGSHIP, "model_cfg.json"),
+            model_cfg=os.path.join(FLAGSHIP, "model_cfg.json"),
             intrin=inp.intrin, cfg=inp.pipe.cfg, frames=inp.scenes,
             plane=inp.plane.cpu().numpy(), group_min_size=inp.pipe.group_min_size)),
         ("train", jobs.train_forest_job, (2, 2), dict(
@@ -3340,7 +3340,7 @@ def phase_mesh_nccl(inp, dev):
     tree_kw = dict(num_classes=CLASSES, images_per_block=2,
                    proposals_per_block=64, num_random_features=64,
                    max_tree_depth=8, seed=17)
-    gold = np.load(os.path.join(kb.FLAGSHIP, "golden_eval.npz"))
+    gold = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
     run = [("mesh", jobs.describe_job, (1, 1), {}),
            ("eval", jobs.eval_job, (1, 1),
             dict(depth=gold["depth"], forest=fine.cpu().numpy())),

@@ -15,8 +15,8 @@ import torch
 import fixtures
 
 from beats3d_tpu_torch import kernel_bench
-from beats3d_tpu_torch.models import LayeredDecisionForest
-from beats3d_tpu_torch.models.forest import PackedForest
+from beats3d_tpu_torch.models import LayeredDecisionForest, load_flagship
+from beats3d_tpu_torch.models.forest import PackedForest, forest_dims
 from beats3d_tpu_torch.ops import (cuda_lib, forest_eval, forest_eval_cuda,
                                    points, preproc_cuda, train_features,
                                    train_features_cuda)
@@ -379,6 +379,27 @@ def _b1_same_as_plain(depth, flat, **kw):
     return got.cpu().numpy()
 
 
+def _b1_at_lanes(depth, flat, lanes, labels_reduce=1,
+                 write_all_eligible=True):
+    """B1 through the library's entry at ``lanes`` lanes per pixel (the
+    wrapper lets the kernel choose), with the spill buffer the entry asks
+    for at that grouping."""
+    n, h, w = depth.shape
+    r = labels_reduce
+    trees, levels, classes = forest_dims(flat.shape)
+    lib = cuda_lib.library()
+    ints = lib.b3d_forest_spill(n, h, w, r, trees, classes, 0, lanes)
+    spill = torch.empty(2 * ints, dtype=torch.int32, device=depth.device)
+    out = torch.empty((n, h // r, w // r), dtype=torch.int32,
+                      device=depth.device)
+    cuda_lib.check(lib.b3d_evaluate_forest(
+        depth.data_ptr(), out.data_ptr(), n, h, w, r, 1.0, flat.data_ptr(),
+        trees, levels, classes, None, -1, int(write_all_eligible), lanes,
+        spill.data_ptr() if ints else None,
+        torch.cuda.current_stream().cuda_stream), "B1 at lanes")
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("trees,levels,classes,r,scale,filtered,write_all,n", [
     (1, 16, 7, 1, 1.0, False, False, 1), (2, 16, 7, 1, 1.0, False, True, 3),
@@ -414,7 +435,6 @@ def test_forest_kernel_every_lane_grouping(rng_np, cuda_dev):
     last level, and both write_all_eligible."""
     depth = torch.as_tensor(fixtures.random_depth_image(rng_np, 2, 30, 70))
     depth = depth.to(cuda_dev).to(torch.int32).contiguous()
-    lib = kernel_bench.current_lib()
     for trees in (1, 3, 4):
         flat = torch.as_tensor(_deep_forest(rng_np, trees, 9, 7, deep_walk=True))
         flat = flat.to(cuda_dev).contiguous()
@@ -422,9 +442,9 @@ def test_forest_kernel_every_lane_grouping(rng_np, cuda_dev):
             kw = dict(labels_reduce=1, write_all_eligible=write_all)
             want = forest_eval_cuda.evaluate_forest_plain(depth, flat, **kw)
             for lanes in (1, 2, 4, 8, 16):
-                run = kernel_bench.forest_runner(lib, lanes=lanes)
                 np.testing.assert_array_equal(
-                    run(depth, flat, **kw).cpu().numpy(), want.cpu().numpy())
+                    _b1_at_lanes(depth, flat, lanes, **kw).cpu().numpy(),
+                    want.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -1370,10 +1390,9 @@ def test_forest_kernel_wide_forests(rng_np, cuda_dev, trees, classes):
     if trees == 17:
         want = forest_eval_cuda.evaluate_forest_plain(depth, flat)
         for lanes in (1, 2, 4, 8, 16):
-            run = kernel_bench.forest_runner(kernel_bench.current_lib(),
-                                             lanes=lanes)
-            np.testing.assert_array_equal(run(depth, flat).cpu().numpy(),
-                                          want.cpu().numpy())
+            np.testing.assert_array_equal(
+                _b1_at_lanes(depth, flat, lanes).cpu().numpy(),
+                want.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -1517,8 +1536,9 @@ def test_graph_replay_matches_eager_at_level_1(cuda_dev, bench):
 
 @pytest.mark.cuda
 def test_pipeline_model_on_an_unindexed_device(cuda_dev):
-    """A model loaded onto device "cuda" (no index, as the apps load it):
-    FramePipeline builds K1's descriptors on its tables' card and runs."""
+    """A model loaded onto device "cuda" (no index, as the apps load it)
+    carries K1's descriptors on its tables' card, and FramePipeline runs
+    it."""
     from beats3d_tpu_torch.runtime import pipeline as pl
     from beats3d_tpu_torch.utils import CameraIntrinsics
 
@@ -2032,7 +2052,7 @@ def test_committed_routed_model_matches_plain(cuda_dev):
     batch of crops: labels equal the plain path's, counts too."""
     if not os.path.exists(os.path.join(KESKIN, "model_cfg.json")):
         pytest.skip("models/keskin_len is not built")
-    m = kernel_bench.load_flagship(cuda_dev, KESKIN)
+    m = load_flagship(cuda_dev, KESKIN)
     assert len(m.layers) == 10 and m.conditions.shape == (15, 3)
     data = np.load(os.path.join(FLAGSHIP, "golden_eval.npz"))
     golden = torch.as_tensor(data["depth"].astype(np.int32)).to(cuda_dev)

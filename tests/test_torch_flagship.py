@@ -38,8 +38,8 @@ import jax.numpy as jnp
 from beats3d_tpu.models import LayeredDecisionForest as JaxLayered
 from beats3d_tpu.ops import points as jpoints
 from beats3d_tpu.utils import CameraIntrinsics as JaxIntrinsics
-from beats3d_tpu_torch import kernel_bench
 from beats3d_tpu_torch.data.dataset import DatasetConfig
+from beats3d_tpu_torch.models import load_flagship
 from beats3d_tpu_torch.scripts import bz3d_session_v2, flagship_v2
 from beats3d_tpu_torch.scripts import truncate_fine as tf
 from beats3d_tpu_torch.ops import points as tpoints
@@ -269,7 +269,7 @@ def test_session_equals_jax(builds, tmp_path, monkeypatch):
 
     intrin = CameraIntrinsics.d415(W, H)
     frames = bz3d_session_v2.session_frames(intrin, SESSION_FRAMES)
-    model = kernel_bench.load_flagship("cpu", str(model_dir))
+    model = load_flagship("cpu", str(model_dir))
     outs = []
     gauss_differ = _gaussian_as_jax(monkeypatch)
     rec, ta = bz3d_session_v2.run_session(

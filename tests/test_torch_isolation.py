@@ -55,12 +55,15 @@ def test_import_loads_no_jax():
         "beats3d_tpu_torch.utils.devtime, beats3d_tpu_torch.scripts, "
         "beats3d_tpu_torch.scripts.flagship_v2, "
         "beats3d_tpu_torch.scripts.truncate_fine, "
-        "beats3d_tpu_torch.scripts.bz3d_session_v2\n"
+        "beats3d_tpu_torch.scripts.bz3d_session_v2, "
+        "beats3d_tpu_torch.scripts.keskin_len\n"
         "import apps.train_model_torch, apps.test_on_saved_model_torch, "
         "apps.run_live_torch, apps.live_data_convert_torch, "
         "apps.pose_fit_torch, apps.merge_datasets_torch, apps.bz3d_torch, "
         "apps.stereo_depth_torch, apps.make_proj_image_torch, "
         "apps.run_live_layered_torch, apps.pointcloids_torch\n"
+        "assert 'beats3d_tpu_torch.kernel_bench' not in sys.modules, "
+        "'a user path imports the bench module'\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'beats3d_tpu' "

@@ -28,8 +28,8 @@ from beats3d_tpu.models import LayeredDecisionForest as JaxLayered
 from beats3d_tpu.models.forest import PackedForest as JaxPacked
 from beats3d_tpu.models.layered import run_layered as jax_run_layered
 from beats3d_tpu.train import train_forest as jax_train_forest
-from beats3d_tpu_torch import kernel_bench
 from beats3d_tpu_torch.data.dataset import ArrayDataset
+from beats3d_tpu_torch.models import load_serving_flagship
 from beats3d_tpu_torch.models.forest import PackedForest
 from beats3d_tpu_torch.ops.forest_eval import evaluate_forest
 from beats3d_tpu_torch.scripts import (bz3d_session_v2, flagship_v2,
@@ -195,7 +195,7 @@ def test_serving_variant_labels_equal_jax(golden, tmp_path):
         jnp.asarray(depth), jm.layer_tables(), jm.conditions,
         filter_specs=fs, labels_reduce=1, scale_factor=jnp.float32(1.0),
         backend="xla"))
-    model = kernel_bench.load_serving_flagship("cpu")
+    model = load_serving_flagship("cpu")
     assert model.layers[1].forest.max_depth == 13
     assert model.filter_specs() == fs
     got = flagship_v2.eval_chunked(model, depth)
